@@ -1,0 +1,54 @@
+"""Carries the JAX package's weights and trainer state into the port.
+
+Both take the JAX pytrees as numpy arrays (``jax.tree.map(np.asarray, x)``)
+and import nothing of JAX, so the tests can run the two packages on the
+same numbers; the port's own entry points initialize from a seed instead.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .dist.qgadmm import DistState
+from .tree import ParamLayout
+
+
+def params_from_jax(np_tree, device=None):
+    """Nested dict of numpy arrays (``repro.models.encdec.init``'s pytree)
+    -> the same dict of tensors on `device`."""
+    dev = resolve_device(device)
+    if isinstance(np_tree, dict):
+        return {k: params_from_jax(v, dev) for k, v in np_tree.items()}
+    return torch.from_numpy(np.array(np_tree)).to(dev)
+
+
+def state_from_jax(np_state, device=None, seed: int = 0) -> DistState:
+    """A ``repro.dist.qgadmm.DistState`` of numpy arrays (barriered,
+    global-radius layout) -> the port's flat DistState: every parameter
+    tree becomes a (rows, D) f32 buffer in the JAX leaf order.  The JAX
+    PRNG key has no torch counterpart; the rounding generator is seeded
+    with `seed`."""
+    dev = resolve_device(device)
+    if len(np_state.inbox) or len(np_state.hat_lag):
+        raise NotImplementedError("staleness state is not ported yet "
+                                  "(ROADMAP Queue 1 item 1d)")
+    layout = ParamLayout.of(np_state.theta, lead=1)
+
+    def flat(tree):
+        tree = params_from_jax(tree, "cpu")
+        return layout.flatten(tree, lead=1).to(dev).contiguous()
+
+    def vec(a, dtype):
+        return torch.from_numpy(np.array(a)).to(dtype).to(dev)
+
+    return DistState(
+        theta=flat(np_state.theta), theta_hat=flat(np_state.theta_hat),
+        hat_edge=flat(np_state.hat_edge), lam_edge=flat(np_state.lam_edge),
+        radius=vec(np_state.radius, torch.float32),
+        bits=vec(np_state.bits, torch.int32),
+        opt_mu=flat(np_state.opt_mu), opt_nu=flat(np_state.opt_nu),
+        opt_t=vec(np_state.opt_t, torch.int32),
+        step=int(np_state.step),
+        gen=torch.Generator(device=dev).manual_seed(seed),
+        layout=layout)
