@@ -10,13 +10,26 @@ Phases, in order; any failure exits non-zero before the result line:
      trainer's shapes (whisper-tiny, W = 4 rows of D = 56,355,840) and at
      ragged sizes: levels, hats and packed bytes must be bitwise equal;
   3. check the trainer against the same trainer on the CPU (plain versions)
-     on a small input (whisper-tiny-smoke, 2 steps, shared draws);
-  4. drive the main path through the CLI's entry point, with every launch
-     count at 0 just before: full whisper-tiny, W = 4 workers, 4-bit packed
-     wire, 5 steps; require finite metrics, sender == receiver bit-sync on
-     every edge, and 2 launches per step of the codec, pack4 and unpack4;
+     on a small input (whisper-tiny-smoke, 2 steps, shared draws), in each
+     quantizer mode: global 4-bit, per_tensor, layerwise with per-leaf
+     periods and thresholds, layerwise with a bit budget, and censoring
+     (with a tau that censors the tails in step 2);
+  4. drive the three trainer paths at full whisper-tiny (W = 4 workers on a
+     chain, 5 steps), each with every launch count at 0 just before:
+       path 1, the CLI at 4 bits, global radius, packed wire: the codec
+         (K1), pack4 and unpack4 launched twice per step;
+       path 2, the trainer API with radius_mode='per_tensor' and eq. 11
+         capped at 4 bits, packed wire: the per-element-radius codec (K2),
+         pack4 and unpack4 twice per step;
+       path 3, the CLI with --layerwise --bit-budget (4 bits per parameter)
+         --censor: the per-element radius-and-levels codec (K3) twice per
+         step, unpacked wire (widths 1 to 8);
+     each requires finite metrics, sender == receiver bit-sync on every
+     edge, bits_mean in range, the wire bits of every step equal to the
+     closed form of its billing branch, and prints one JSON line;
   5. time each kernel (CUDA events) beside its plain version and its bound,
-     and print one JSON line listing them.
+     and print one JSON line listing them with their launches summed over
+     the three paths.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card; it
 imports nothing of JAX and nothing of the JAX package.
 """
@@ -30,6 +43,14 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 W, STEPS, BITS = 4, 5, 4
 CHAIN_SRC = [1, 0, 2, 1, 3, 2]   # source worker of each directed chain edge
+DEGREE = [CHAIN_SRC.count(i) for i in range(W)]
+EDGES = len(CHAIN_SRC) // 2
+FLAG_BITS = 1                    # censor flag per directed edge (and leaf)
+# whisper-tiny's 4 bits per parameter: the budget controller mixes 1..8 bits
+BIT_BUDGET = 4 * 56_355_840
+# censors the tails in step 2 of whisper-tiny-smoke from seed 0 (their L2
+# delta 13.31 / 13.38 against the threshold 13.43; the heads' 13.47)
+SMALL_TAU = 14.92
 CODECS = (("row", "quantize_dequantize"),
           ("vec_r", "quantize_dequantize_vec_r"),
           ("vec_rl", "quantize_dequantize_vec_rl"))
@@ -198,47 +219,29 @@ def main() -> int:
     del q_path, recv, pk, pk_ref, un, un_ref
     torch.cuda.empty_cache()
 
-    # ---- 3. trainer on the card vs on the CPU, small input ---------------
-    check_small_trainer()
+    # ---- 3. trainer on the card vs on the CPU, small input, every mode ---
+    check_small_trainers()
 
-    # ---- 4. the main path, counted --------------------------------------
+    # ---- 4. the three trainer paths, counted ----------------------------
     from repro_torch.launch import train
-    args = train.parse_args(["--arch", "whisper-tiny", "--workers", str(W),
-                             "--bits", str(BITS), "--steps", str(STEPS),
-                             "--log-every", "1"])
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    trainer, state, log = train.run(args)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"launches on the main path: {launches}")
-    want = {"quantize_dequantize": 2 * STEPS, "pack4": 2 * STEPS,
-            "unpack4": 2 * STEPS}
-    for k, v in want.items():
-        if launches[k] != v:
-            fail(f"{k} launched {launches[k]} times on the main path, "
-                 f"expected {v}")
-    if state.layout.size != d:
-        fail(f"whisper-tiny has {state.layout.size} parameters, not {d}")
-    for step, m, _ in log:
-        for k in ("loss", "consensus_resid", "radius_mean"):
-            if not torch.isfinite(torch.tensor(m[k])):
-                fail(f"step {step}: {k} = {m[k]}")
-    if not trainer.bit_sync(state):
-        fail("hat_edge is not bitwise the sender's theta_hat")
-    print("  metrics finite; hat_edge bitwise == theta_hat[src] on all "
-          f"{trainer.eidx.num_directed} directed edges")
-    step_s = sorted(s for _, _, s in log[1:])
-    trainer_line = {"trainer": {
-        "arch": "whisper-tiny", "workers": W, "bits": BITS, "steps": STEPS,
-        "params_per_worker": d, "first_step_s": log[0][2],
-        "median_step_s": step_s[len(step_s) // 2],
-        "max_memory_allocated_bytes": peak,
-        "loss_first": log[0][1]["loss"], "loss_last": log[-1][1]["loss"]}}
-    print(json.dumps(trainer_line))
-    del state, trainer
-    torch.cuda.empty_cache()
+    path_launches = []
+    cli = ["--arch", "whisper-tiny", "--workers", str(W), "--bits", str(BITS),
+           "--steps", str(STEPS), "--log-every", "1"]
+    path_launches.append(run_path(
+        "global", lambda: train.run(train.parse_args(cli)),
+        {"quantize_dequantize": 2 * STEPS, "pack4": 2 * STEPS,
+         "unpack4": 2 * STEPS}, (BITS, BITS), d))
+    path_launches.append(run_path(
+        "per_tensor", per_tensor_run,
+        {"quantize_dequantize_vec_r": 2 * STEPS, "pack4": 2 * STEPS,
+         "unpack4": 2 * STEPS}, (1, BITS), d))
+    path_launches.append(run_path(
+        "layerwise_budget_censor",
+        lambda: train.run(train.parse_args(
+            cli + ["--layerwise", "--bit-budget", str(BIT_BUDGET),
+                   "--censor"])),
+        {"quantize_dequantize_vec_rl": 2 * STEPS}, (1, 8), d))
+    launches = {k: sum(pl[k] for pl in path_launches) for k in kernels.KERNELS}
 
     # ---- 5. timing -------------------------------------------------------
     rows = []
@@ -281,7 +284,7 @@ def main() -> int:
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms by bytes, reckoned), "
-              f"{r['launches']} launches on the main path")
+              f"{r['launches']} launches on the three paths")
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -290,12 +293,157 @@ def main() -> int:
     return 0
 
 
-def check_small_trainer():
+def per_tensor_run():
+    """Path 2 through the trainer API (the CLI has no radius-mode flag):
+    full whisper-tiny with the CLI's data, per_tensor radius and eq. 11
+    capped at 4 bits.  Returns (trainer, state, log) like ``train.run``."""
+    import torch
+
+    from repro_torch.configs import whisper_tiny
+    from repro_torch.core.gadmm import GADMMConfig
+    from repro_torch.core.quantizer import QuantizerConfig
+    from repro_torch.data.pipeline import ExtraInputs, LMShardLoader
+    from repro_torch.dist.qgadmm import DistConfig, QGADMMTrainer, init_state
+    from repro_torch.models import encdec
+
+    cfg = whisper_tiny.config()
+    dcfg = DistConfig(num_workers=W, radius_mode="per_tensor", gadmm=GADMMConfig(
+        rho=1.0, alpha=0.01, qcfg=QuantizerConfig(bits=BITS, adapt_bits=True,
+                                                  max_bits=BITS)))
+    trainer = QGADMMTrainer(encdec, cfg, dcfg)
+    state = init_state(lambda g: encdec.init(g, cfg), 0, dcfg)
+    loader = LMShardLoader(W, 4, 128, cfg.vocab)
+    frames = ExtraInputs.frames(W, 4, cfg.encoder_frames, cfg.d_model)
+    log = []
+    for k in range(STEPS):
+        t0 = time.time()
+        state, m = trainer.step(state, dict(loader.next_batch(), frames=frames))
+        m = {n: float(v) if v.dim() == 0 else v.tolist()
+             for n, v in m.items()}                        # syncs the device
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        print(f"step {k + 1}: loss={m['loss']:.4f} "
+              f"resid={m['consensus_resid']:.4f} R={m['radius_mean']:.5f} "
+              f"bits={m['bits_mean']:.2f} ({dt:.2f}s/step)")
+        log.append((k + 1, m, dt))
+    return trainer, state, log
+
+
+def packed_len(n: int) -> int:
+    """pack4's wire length: 128 bytes per 256 levels."""
+    return 128 * -(-n // 256)
+
+
+def closed_form_wire_bits(trainer, state, m) -> float:
+    """The wire bits of one step from its committed masks: every phase and
+    direction of every chain edge carries a row plus its header; censored,
+    a flag per directed edge plus the payload of each sender on each of its
+    edges; layerwise, a flag per leaf slot and directed edge plus, per sent
+    leaf, its nibble-packed (<= 4 bits) or byte-wide segment and header."""
+    dcfg = trainer.dcfg
+    sizes = state.layout.sizes
+    if dcfg.layerwise is not None:
+        total = 2 * 2 * EDGES * len(sizes) * FLAG_BITS
+        for w, row in enumerate(m["leaf_bits_sent"]):
+            for b, n in zip(row, sizes):
+                if b > 0:
+                    nbytes = packed_len(n) if b <= 4 else n
+                    total += DEGREE[w] * (8 * nbytes + 64)
+        return float(total)
+    d = state.layout.size
+    n_r = len(sizes) if dcfg.radius_mode == "per_tensor" else 1
+    per_link = 8 * (packed_len(d) if dcfg.pack_wire else d) + 32 * n_r + 32
+    if dcfg.censor is None:
+        return float(2 * 2 * EDGES * per_link)
+    return float(2 * 2 * EDGES * FLAG_BITS + per_link * sum(
+        s * g for s, g in zip(m["worker_sent"], DEGREE)))
+
+
+def run_path(mode, run, want, bits_range, d):
+    """Drive one trainer path with every launch count at 0 just before;
+    check its launches, metrics, bit-sync and wire bits; print its JSON
+    line and return its launch counts."""
+    import torch
+
+    from repro_torch import kernels
+    print(f"path {mode}:")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    trainer, state, log = run()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  launches: {launches}")
+    for k in kernels.KERNELS:
+        if launches[k] != want.get(k, 0):
+            fail(f"path {mode}: {k} launched {launches[k]} times, expected "
+                 f"{want.get(k, 0)}")
+    if state.layout.size != d:
+        fail(f"whisper-tiny has {state.layout.size} parameters, not {d}")
+    lo, hi = bits_range
+    for step, m, _ in log:
+        for k in ("loss", "consensus_resid", "radius_mean"):
+            if not torch.isfinite(torch.tensor(m[k])):
+                fail(f"path {mode} step {step}: {k} = {m[k]}")
+        if not lo <= m["bits_mean"] <= hi:
+            fail(f"path {mode} step {step}: bits_mean {m['bits_mean']} "
+                 f"outside [{lo}, {hi}]")
+        want_bits = closed_form_wire_bits(trainer, state, m)
+        if abs(m["wire_bits_per_round"] - want_bits) > 1e-6 * want_bits:
+            fail(f"path {mode} step {step}: wire bits "
+                 f"{m['wire_bits_per_round']} != closed form {want_bits}")
+    if not trainer.bit_sync(state):
+        fail(f"path {mode}: hat_edge is not bitwise the sender's theta_hat")
+    print(f"  metrics finite, bits_mean in [{lo}, {hi}], wire bits == closed "
+          "form; hat_edge bitwise == theta_hat[src] on all "
+          f"{trainer.eidx.num_directed} directed edges")
+    step_s = sorted(s for _, _, s in log[1:])
+    print(json.dumps({"trainer": {
+        "arch": "whisper-tiny", "mode": mode, "workers": W, "steps": STEPS,
+        "params_per_worker": d, "pack_wire": trainer.dcfg.pack_wire,
+        "first_step_s": log[0][2], "median_step_s": step_s[len(step_s) // 2],
+        "max_memory_allocated_bytes": peak,
+        "skip_rate": [m["skip_rate"] for _, m, _ in log],
+        "bits_mean": [m["bits_mean"] for _, m, _ in log],
+        "wire_bits_per_round": [m["wire_bits_per_round"] for _, m, _ in log],
+        "loss_first": log[0][1]["loss"], "loss_last": log[-1][1]["loss"]}}))
+    del state, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_small_trainers():
     """whisper-tiny-smoke, 2 steps, on the card (kernels) and on the CPU
-    (plain versions) from the same init, batches and draws: metrics rtol
-    1e-3, and theta within 1e-4 at all but 1e-3 of the positions (matmul
-    sums differ between the two devices; Adam's first steps amplify a tiny
-    difference where the gradient is ~0)."""
+    (plain versions) from the same init, batches and draws, in every
+    quantizer mode: metrics rtol 1e-3, and theta within 1e-4 at all but
+    1e-3 of the positions (matmul sums differ between the two devices;
+    Adam's first steps amplify a tiny difference where the gradient is
+    ~0); both sides bit-synced.  The censoring case must censor some
+    worker but not all in one of its steps."""
+    from repro_torch.core.censor import CensorConfig
+    from repro_torch.core.quantizer import LayerwiseConfig
+    n_leaves = 25
+    modes = {
+        "global": {},
+        "per_tensor": {"radius_mode": "per_tensor"},
+        "layerwise_periods_taus": {"layerwise": LayerwiseConfig(
+            bits=tuple(2 if i % 2 else 4 for i in range(n_leaves)),
+            periods=tuple(2 if i % 3 == 2 else 1 for i in range(n_leaves)),
+            taus=1.0, tau_xi=0.9)},
+        "layerwise_budget": {"layerwise": LayerwiseConfig(
+            budget_bits=4 * 182_400)},
+        "censor": {"censor": CensorConfig(tau=SMALL_TAU, xi=0.9)},
+    }
+    for mode, kw in modes.items():
+        skips = check_small_trainer(mode, kw)
+        if mode == "censor" and not any(0.0 < s < 1.0 for s in skips):
+            fail(f"small trainer censor: skip rates {skips} censor no worker "
+                 "or all of them")
+
+
+def check_small_trainer(mode, kw):
+    """One mode of check_small_trainers; returns the per-step skip rates."""
     import numpy as np
     import torch
 
@@ -308,7 +456,7 @@ def check_small_trainer():
 
     cfg = whisper_tiny.smoke_config()
     dcfg = DistConfig(num_workers=W, gadmm=GADMMConfig(
-        rho=1.0, qcfg=QuantizerConfig(bits=BITS), alpha=0.01))
+        rho=1.0, qcfg=QuantizerConfig(bits=BITS), alpha=0.01), **kw)
     sides = {}
     for dev in ("cpu", "cuda"):
         tr = QGADMMTrainer(encdec, cfg, dcfg, device=dev)
@@ -319,25 +467,31 @@ def check_small_trainer():
     loader = LMShardLoader(W, 2, 16, cfg.vocab)
     frames = ExtraInputs.frames(W, 2, cfg.encoder_frames, cfg.d_model)
     rng = np.random.default_rng(0)
+    skips = []
     for k in range(2):
         batch = dict(loader.next_batch(), frames=frames)
         u = [rng.random((W, st_cpu.layout.size), dtype=np.float32)
              for _ in range(2)]
         out = {dev: tr.step(st, batch, u=u)[1] for dev, (tr, st)
                in sides.items()}
-        for name in ("loss", "consensus_resid", "radius_mean"):
+        for name in ("loss", "consensus_resid", "radius_mean", "bits_mean",
+                     "skip_rate", "wire_bits_per_round"):
             a, b = float(out["cpu"][name]), float(out["cuda"][name])
             if not abs(a - b) <= 1e-3 * abs(a):
-                fail(f"small trainer step {k}: {name} cuda {b} vs cpu {a}")
-        th = (sides["cuda"][1].theta.cpu() - st_cpu.theta).abs()
+                fail(f"small trainer {mode} step {k}: {name} cuda {b} vs "
+                     f"cpu {a}")
+        skips.append(float(out["cuda"]["skip_rate"]))
+        th = (sides["cuda"][1].theta.cpu() - sides["cpu"][1].theta).abs()
         frac = float((th > 1e-4).float().mean())
         if frac > 1e-3:
-            fail(f"small trainer step {k}: theta differs at {frac:.2e}")
+            fail(f"small trainer {mode} step {k}: theta differs at "
+                 f"{frac:.2e}")
         for dev, (tr, st) in sides.items():
             if not tr.bit_sync(st):
-                fail(f"small trainer on {dev}: sender/receiver desync")
-    print("  small trainer (whisper-tiny-smoke, 2 steps): card == CPU within "
-          "tolerance, bit-synced on both")
+                fail(f"small trainer {mode} on {dev}: sender/receiver desync")
+    print(f"  small trainer {mode} (whisper-tiny-smoke, 2 steps): card == CPU "
+          f"within tolerance, bit-synced on both; skip rates {skips}")
+    return skips
 
 
 if __name__ == "__main__":

@@ -24,11 +24,12 @@ def params_from_jax(np_tree, device=None):
 
 
 def state_from_jax(np_state, device=None, seed: int = 0) -> DistState:
-    """A ``repro.dist.qgadmm.DistState`` of numpy arrays (barriered,
-    global-radius layout) -> the port's flat DistState: every parameter
-    tree becomes a (rows, D) f32 buffer in the JAX leaf order.  The JAX
-    PRNG key has no torch counterpart; the rounding generator is seeded
-    with `seed`."""
+    """A ``repro.dist.qgadmm.DistState`` of numpy arrays (barriered) -> the
+    port's flat DistState: every parameter tree becomes a (rows, D) f32
+    buffer in the JAX leaf order; ``radius`` and ``bits`` keep their shapes
+    ((W,), or (W, L) per leaf under per_tensor / layerwise).  The JAX PRNG
+    key has no torch counterpart; the rounding generator is seeded with
+    `seed`."""
     dev = resolve_device(device)
     if len(np_state.inbox) or len(np_state.hat_lag):
         raise NotImplementedError("staleness state is not ported yet "

@@ -4,11 +4,15 @@
       --workers 4 --bits 4 --steps 5
 
 runs W workers of the full whisper-tiny on the card (the Q-SGADMM chain,
-gauss-seidel, global radius, nibble-packed wire at <= 4 bits).  ``--smoke
---device cpu`` runs the same path on whisper-tiny-smoke with the kernels'
-plain versions.  Prints the JAX launcher's step line
-(``repro/launch/train.py``).  float32 matmuls run in full float32 (TF32
-off, set explicitly here).
+gauss-seidel, global radius, nibble-packed wire at <= 4 bits).  The JAX
+launcher's flags ``--topology``, ``--censor`` (with ``--censor-tau`` /
+``--censor-xi``), ``--layerwise`` (with ``--layerwise-period``) and
+``--bit-budget`` (implies ``--layerwise``) select the other graphs and the
+CQ-GGADMM / L-FGADMM wire, with the same names and defaults
+(``repro/launch/train.py``).  ``--smoke --device cpu`` runs the same paths on
+whisper-tiny-smoke with the kernels' plain versions.  Prints the JAX
+launcher's step line.  float32 matmuls run in full float32 (TF32 off, set
+explicitly here).
 """
 import argparse
 import sys
@@ -16,6 +20,8 @@ import time
 
 
 def parse_args(argv=None) -> argparse.Namespace:
+    from repro_torch.core.topology import TOPOLOGY_KINDS
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="whisper-tiny")
     ap.add_argument("--smoke", action="store_true",
@@ -28,6 +34,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--bits", type=int, default=8)
     ap.add_argument("--local-iters", type=int, default=1)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--topology", default="chain",
+                    choices=list(TOPOLOGY_KINDS),
+                    help="worker graph (ring: even workers; torus2d: "
+                         "workers %% 4 == 0)")
+    ap.add_argument("--censor", action="store_true",
+                    help="CQ-GGADMM censored transmissions")
+    ap.add_argument("--censor-tau", type=float, default=0.05)
+    ap.add_argument("--censor-xi", type=float, default=0.9)
+    ap.add_argument("--layerwise", action="store_true",
+                    help="L-FGADMM per-leaf wire: large leaves transmit "
+                         "every --layerwise-period rounds at per-leaf bit "
+                         "widths")
+    ap.add_argument("--layerwise-period", type=int, default=2,
+                    help="exchange period of the large leaves (top "
+                         "half of the model by parameter count)")
+    ap.add_argument("--bit-budget", type=int, default=None, metavar="BITS",
+                    help="adaptive per-leaf bit allocation under a fixed "
+                         "sum(bits_l * d_l) payload budget per "
+                         "transmission (implies --layerwise)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
@@ -42,8 +67,9 @@ def setup(args: argparse.Namespace):
     an endless generator of the workers' (W, ...) batches."""
     import torch
 
+    from repro_torch.core.censor import CensorConfig
     from repro_torch.core.gadmm import GADMMConfig
-    from repro_torch.core.quantizer import QuantizerConfig
+    from repro_torch.core.quantizer import LayerwiseConfig, QuantizerConfig
     from repro_torch.data.pipeline import ExtraInputs, LMShardLoader
     from repro_torch.device import resolve_device
     from repro_torch.dist.qgadmm import DistConfig, QGADMMTrainer, init_state
@@ -62,7 +88,14 @@ def setup(args: argparse.Namespace):
         num_workers=args.workers,
         gadmm=GADMMConfig(rho=args.rho, quantize=True,
                           qcfg=QuantizerConfig(bits=args.bits), alpha=0.01),
-        local_iters=args.local_iters, local_lr=args.lr)
+        local_iters=args.local_iters, local_lr=args.lr,
+        topology=args.topology,
+        censor=(CensorConfig(tau=args.censor_tau, xi=args.censor_xi)
+                if args.censor else None),
+        layerwise=(LayerwiseConfig(large_leaf_period=args.layerwise_period,
+                                   budget_bits=args.bit_budget)
+                   if args.layerwise or args.bit_budget is not None
+                   else None))
     trainer = QGADMMTrainer(model, cfg, dcfg, device=device)
     state = init_state(lambda g: model.init(g, cfg), args.seed, dcfg,
                        device=device)
@@ -91,11 +124,17 @@ def run(args: argparse.Namespace):
         state, metrics = trainer.step(state, next(batches))
         window += 1
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
-            m = {k: float(v) for k, v in metrics.items()}  # syncs the device
+            m = {k: float(v) if v.dim() == 0 else v.tolist()
+                 for k, v in metrics.items()}          # syncs the device
             dt = time.time() - t0
+            extra = (f" skip={m['skip_rate']:.2f} "
+                     f"wire_bits={m['wire_bits_per_round']:.3g}"
+                     if args.censor or trainer.dcfg.layerwise is not None
+                     else "")
             print(f"step {step + 1}: loss={m['loss']:.4f} "
                   f"resid={m['consensus_resid']:.4f} "
-                  f"R={m['radius_mean']:.5f} "
+                  f"R={m['radius_mean']:.5f}"
+                  f"{extra} "
                   f"({dt / window:.2f}s/step)")
             log.append((step + 1, m, dt / window))
             t0, window = time.time(), 0

@@ -55,6 +55,20 @@ class ParamLayout:
     def size(self) -> int:
         return sum(self.sizes)
 
+    def leaf_index(self, device=None) -> Tensor:
+        """(D,) int32 position -> leaf map of the flat row (the JAX
+        trainer's ``seg``): ``table.index_select(-1, idx)`` expands a
+        (..., L) per-leaf table to per-position values."""
+        leaves = torch.arange(len(self.shapes), dtype=torch.int32,
+                              device=device)
+        return torch.repeat_interleave(
+            leaves, torch.tensor(self.sizes, device=device),
+            output_size=self.size)
+
+    def split(self, flat: Tensor) -> tuple:
+        """(..., D) buffer -> per-leaf (..., d_l) views in wire order."""
+        return flat.split(self.sizes, dim=-1)
+
     def flatten(self, tree, lead: int = 0) -> Tensor:
         """Tree -> flat buffer (leading dims kept) in wire order, f32."""
         pl = leaves_with_path(tree)

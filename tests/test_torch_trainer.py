@@ -21,6 +21,10 @@ where the port divides, so hats differ by a few ulp everywhere; in step 0
 fewer than 1e-4 of the positions cross an edge, and in step 1, where R has
 shrunk ~100x and the 8-bit grid is that much finer, fewer than 5e-3.
 
+The bit-width tables must be equal and the radius tables agree to rtol
+1e-4 (R = max |theta - hat| follows theta's last bits once the Adam moments
+have drifted by an ulp; 1.2e-5 seen).
+
 Inside the port, ``hat_edge[d]`` must be bitwise ``theta_hat[src[d]]`` after
 every step: sender == receiver.
 """
@@ -32,15 +36,19 @@ import torch
 from jax.sharding import Mesh
 
 from repro.configs import whisper_tiny as j_whisper
+from repro.core.censor import CensorConfig as JCensorConfig
 from repro.core.gadmm import GADMMConfig as JGADMMConfig
+from repro.core.quantizer import LayerwiseConfig as JLayerwiseConfig
 from repro.core.quantizer import QuantizerConfig as JQuantizerConfig
 from repro.data.pipeline import ExtraInputs, LMShardLoader
 from repro.dist import qgadmm as jq
 from repro.models import encdec as j_encdec
 from repro_torch.configs import whisper_tiny as t_whisper
 from repro_torch.convert import state_from_jax
+from repro_torch.core.censor import CensorConfig
 from repro_torch.core.gadmm import GADMMConfig
-from repro_torch.core.quantizer import QuantizerConfig
+from repro_torch.core.quantizer import (LayerwiseConfig, QuantizerConfig,
+                                        levels_of)
 from repro_torch.dist import qgadmm as tq
 from repro_torch.models import encdec as t_encdec
 
@@ -49,25 +57,44 @@ W = 4
 CASES = {4: (0.0, 0.0), 8: (1e-4, 5e-3)}
 
 
-def _configs(bits):
-    jd = jq.DistConfig(num_workers=W, gadmm=JGADMMConfig(
-        rho=1.0, quantize=True, qcfg=JQuantizerConfig(bits=bits), alpha=0.01),
-        telemetry=False)
-    td = tq.DistConfig(num_workers=W, gadmm=GADMMConfig(
-        rho=1.0, quantize=True, qcfg=QuantizerConfig(bits=bits), alpha=0.01))
-    return jd, td
+def configs(qcfg=None, censor=None, layerwise=None, **kw):
+    """The same trainer configuration for both packages: rho 1, alpha 0.01,
+    `qcfg` / `censor` / `layerwise` as keyword dicts of their configs."""
+    qcfg = qcfg or {"bits": 4}
+
+    def one(dist, gadmm, quant, cens, lw, **extra):
+        return dist(
+            num_workers=W, gadmm=gadmm(rho=1.0, quantize=True,
+                                       qcfg=quant(**qcfg), alpha=0.01),
+            censor=None if censor is None else cens(**censor),
+            layerwise=None if layerwise is None else lw(**layerwise),
+            **kw, **extra)
+
+    return (one(jq.DistConfig, JGADMMConfig, JQuantizerConfig, JCensorConfig,
+                JLayerwiseConfig, telemetry=False),
+            one(tq.DistConfig, GADMMConfig, QuantizerConfig, CensorConfig,
+                LayerwiseConfig))
 
 
 def _frac_beyond(a, b, atol):
     return float(((a - b).abs() > atol).float().mean())
 
 
-@pytest.mark.parametrize("bits", sorted(CASES))
-def test_trainer_matches_jax(bits):
+def _per_position(t, layout):
+    """(W,) -> (W, 1); (W, L) per-leaf table -> (W, D)."""
+    return t[:, None] if t.dim() == 1 else t.index_select(
+        1, layout.leaf_index())
+
+
+def compare_with_jax(jd, td, fracs, wire_rtol=0.0):
+    """Run the jitted JAX step and the port's step side by side on
+    whisper-tiny-smoke for len(fracs) steps from the same state, batches
+    and draws, and hold them together after every step (see the module
+    docstring); fracs[k] bounds the fraction of state positions beyond
+    atol 1e-5 after step k.  Returns the port's metrics of every step."""
     jcfg = j_whisper.smoke_config(remat=False)
     tcfg = t_whisper.smoke_config()
-    jd, td = _configs(bits)
-    assert td.pack_wire == jd.pack_wire == (bits <= 4)
+    assert td.pack_wire == jd.pack_wire
     mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1, 1),
                 ("worker", "fsdp", "model"))
     jtr = jq.QGADMMTrainer(j_encdec, jcfg, jd, mesh)
@@ -76,47 +103,62 @@ def test_trainer_matches_jax(bits):
     jstep = jax.jit(jtr.make_train_step())
     ttr = tq.QGADMMTrainer(t_encdec, tcfg, td, device="cpu")
     tst = state_from_jax(jax.tree.map(np.asarray, jst), "cpu")
-    d = tst.layout.size
+    layout = tst.layout
     loader = LMShardLoader(W, 2, 16, jcfg.vocab)
     frames = ExtraInputs.frames(W, 2, jcfg.encoder_frames, jcfg.d_model)
-    levels = 2.0 ** bits - 1.0
-    for k, frac in enumerate(CASES[bits]):
+    out = []
+    for k, frac in enumerate(fracs):
         batch = loader.next_batch()
         batch["frames"] = frames
         _, k1, k2 = jax.random.split(jst.key, 3)
-        u = [np.array(jax.random.uniform(kk, (W, d), jnp.float32))
+        u = [np.array(jax.random.uniform(kk, (W, layout.size), jnp.float32))
              for kk in (k1, k2)]
         jst, jm = jstep(jst, batch)
         tst, tm = ttr.step(tst, batch, u=u)
         for name in ("loss", "consensus_resid", "radius_mean"):
             np.testing.assert_allclose(float(tm[name]), float(jm[name]),
                                        rtol=1e-4, err_msg=name)
-        for name in ("bits_mean", "skip_rate", "wire_bits_per_round"):
-            assert float(tm[name]) == float(jm[name]), name
+        for name in ("bits_mean", "skip_rate"):
+            assert float(tm[name]) == float(jm[name]), (k, name)
+        np.testing.assert_allclose(float(tm["wire_bits_per_round"]),
+                                   float(jm["wire_bits_per_round"]),
+                                   rtol=wire_rtol, err_msg="wire bits")
         ref = state_from_jax(jax.tree.map(np.asarray, jst), "cpu")
         assert torch.equal(tst.opt_t, ref.opt_t) and tst.step == ref.step
-        assert torch.equal(tst.bits, ref.bits)
+        assert torch.equal(tst.bits, ref.bits), k
+        # R = max |theta - hat| moves with theta's last bits
+        torch.testing.assert_close(tst.radius, ref.radius, rtol=1e-4,
+                                   atol=0.0)
         for f in ("theta", "opt_mu", "opt_nu", "lam_edge", "theta_hat",
                   "hat_edge"):
             got = _frac_beyond(getattr(tst, f), getattr(ref, f), 1e-5)
             assert got <= frac, (k, f, got)
         # the codec moves a hat by at most the theta difference plus one
-        # level (one quantization step)
-        bound = ((tst.theta - ref.theta).abs()
-                 + 1.001 * (2.0 * ref.radius / levels)[:, None] + 1e-6)
+        # level (one quantization step at the committed radius and width)
+        grid = (2.0 * _per_position(ref.radius, layout)
+                / _per_position(levels_of(ref.bits), layout))
+        bound = (tst.theta - ref.theta).abs() + 1.001 * grid + 1e-6
         assert bool(((tst.theta_hat - ref.theta_hat).abs() <= bound).all()), k
         assert bool(((tst.hat_edge - ref.hat_edge).abs()
                      <= bound[ttr._src]).all()), k
         assert ttr.bit_sync(tst), k
+        out.append(tm)
+    return out
+
+
+@pytest.mark.parametrize("bits", sorted(CASES))
+def test_trainer_matches_jax(bits):
+    jd, td = configs({"bits": bits})
+    assert td.pack_wire == (bits <= 4)
+    compare_with_jax(jd, td, CASES[bits])
 
 
 def test_unported_options_raise():
     g = GADMMConfig(rho=1.0, qcfg=QuantizerConfig(bits=4))
-    for kw in ({"censor": object()}, {"staleness": 1},
-               {"participation": 0.5}, {"mode": "jacobi"},
-               {"radius_mode": "per_tensor"}, {"microbatches": 2},
-               {"overlap": True}, {"layerwise": object()},
-               {"state_dtype": torch.bfloat16}):
+    for kw in ({"staleness": 1}, {"participation": 0.5}, {"mode": "jacobi"},
+               {"overlap": True}, {"check_invariants": True},
+               {"microbatches": 2}, {"state_dtype": torch.bfloat16},
+               {"uneven_shard": True}, {"seq_shard": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tq.DistConfig(num_workers=W, gadmm=g, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -133,3 +175,24 @@ def test_cli_smoke_runs_on_cpu(capsys):
                        "--log-every", "1"]) == 0
     out = capsys.readouterr().out
     assert "step 2: loss=" in out and "resid=" in out and "done" in out
+
+
+def test_cli_censor_layerwise_flags_on_cpu(capsys):
+    """The JAX launcher's censor / layerwise flags: ``--bit-budget`` implies
+    ``--layerwise``, the controller mixes widths up to 8 bits (so the wire is
+    unpacked), and the step line carries ``skip=`` and ``wire_bits=``."""
+    from repro_torch.launch import train
+    args = train.parse_args(["--smoke", "--device", "cpu", "--steps", "2",
+                             "--workers", "4", "--bits", "4",
+                             "--per-worker-batch", "2", "--seq", "16",
+                             "--log-every", "1", "--bit-budget", "729600",
+                             "--censor"])
+    trainer, state, log = train.run(args)
+    out = capsys.readouterr().out
+    assert "step 2: loss=" in out and " skip=" in out and " wire_bits=" in out
+    dcfg = trainer.dcfg
+    assert dcfg.layerwise.budget_bits == 729600 and dcfg.censor.tau == 0.05
+    assert dcfg.radius_mode == "per_tensor" and not dcfg.pack_wire
+    assert state.bits.shape == state.radius.shape == (4, 25)
+    assert trainer.bit_sync(state)
+    assert [len(m["leaf_bits_sent"]) for _, m, _ in log] == [4, 4]
