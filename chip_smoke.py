@@ -6,14 +6,23 @@
 Phases, in order; any failure exits non-zero before the result line:
   1. print the card (``nvidia-smi`` name and power limit); build every CUDA
      source with nvcc (in parallel) and print its registers and spills;
-  2. hold each kernel against its plain PyTorch version on the card, at the
-     trainer's shapes (whisper-tiny, W = 4 rows of D = 56,355,840) and at
+  2. hold each wire kernel against its plain PyTorch version on the card, at
+     the trainer's shapes (whisper-tiny, W = 4 rows of D = 56,355,840) and at
      ragged sizes: levels, hats and packed bytes must be bitwise equal;
+  2b. hold the SSD kernel (K6) against its plain version at the serving
+     shape (BC 16, Q 256, H 80, P 64, N 128) and at ragged shapes (Q 8, 32,
+     200; H 5, 80; N = P = 16), float32 and bfloat16 inputs, to
+     max |kernel - plain| <= 1e-5 max |plain| (float32 sums in another
+     order); and one two-group ``ssd_scan`` on the card against the CPU's;
   3. check the trainer against the same trainer on the CPU (plain versions)
      on a small input (whisper-tiny-smoke, 2 steps, shared draws), in each
      quantizer mode: global 4-bit, per_tensor, layerwise with per-leaf
      periods and thresholds, layerwise with a bit budget, and censoring
      (with a tau that censors the tails in step 2);
+  3b. serve mamba2-smoke on the card against the same server on the CPU
+     (B = 2, prompt 20: three chunks of 8, the last padded; then 4
+     teacher-forced decode steps): logits and caches to rtol 1e-4 / atol
+     1e-5, TF32 off;
   4. drive the three trainer paths at full whisper-tiny (W = 4 workers on a
      chain, 5 steps), each with every launch count at 0 just before:
        path 1, the CLI at 4 bits, global radius, packed wire: the codec
@@ -27,9 +36,17 @@ Phases, in order; any failure exits non-zero before the result line:
      each requires finite metrics, sender == receiver bit-sync on every
      edge, bits_mean in range, the wire bits of every step equal to the
      closed form of its billing branch, and prints one JSON line;
+     then path 4, serve: full mamba2-2.7b (2,831,296,000 float32 parameters,
+     random from seed 0) through ``launch/serve.py``'s ``run``, B = 4, two
+     request batches (prompt 1024, then 1000), each followed by 32 greedy
+     decode tokens, with every launch count at 0 just before: exactly
+     64 x 2 = 128 launches of K6 and none of K1-K5, finite logits, and the
+     prefill / decode logits of the second batch equal, to atol = rtol =
+     2e-3, to one ``forward`` over its prompt and first 24 generated
+     tokens; prints one JSON line;
   5. time each kernel (CUDA events) beside its plain version and its bound,
      and print one JSON line listing them with their launches summed over
-     the three paths.
+     the four paths.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card; it
 imports nothing of JAX and nothing of the JAX package.
 """
@@ -41,6 +58,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 W, STEPS, BITS = 4, 5, 4
 CHAIN_SRC = [1, 0, 2, 1, 3, 2]   # source worker of each directed chain edge
 DEGREE = [CHAIN_SRC.count(i) for i in range(W)]
@@ -51,6 +69,15 @@ BIT_BUDGET = 4 * 56_355_840
 # censors the tails in step 2 of whisper-tiny-smoke from seed 0 (their L2
 # delta 13.31 / 13.38 against the threshold 13.43; the heads' 13.47)
 SMALL_TAU = 14.92
+# SSD kernel: mamba2-2.7b's prefill of B = 4 x 1024 tokens in chunks of 256
+SSD_SERVE = (16, 256, 80, 64, 128)     # (BC, Q, H, P, N)
+SSD_RAGGED = [(4, q, h, 16, 16) for q in (8, 32, 200) for h in (5, 80)]
+SSD_REL = 1e-5          # max |kernel - plain| / max |plain|
+SERVE_ARGS = ["--full", "--batch", "4", "--prompt-len", "1024", "1000",
+              "--gen-len", "32"]
+SERVE_PARAMS = 2_831_296_000
+CONSIST_STEPS = 24      # decode steps of batch 2 held against one forward
+CONSIST_TOL = 2e-3      # atol = rtol, as tests/test_arch_smoke.py
 CODECS = (("row", "quantize_dequantize"),
           ("vec_r", "quantize_dequantize_vec_r"),
           ("vec_rl", "quantize_dequantize_vec_rl"))
@@ -172,6 +199,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.pack import ops as pack_ops
     from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.models.config import num_params
 
     # ---- 1. card and build ---------------------------------------------
@@ -219,8 +247,13 @@ def main() -> int:
     del q_path, recv, pk, pk_ref, un, un_ref
     torch.cuda.empty_cache()
 
+    # ---- 2b. the SSD kernel vs its plain version ------------------------
+    err["ssd_intra"] = check_ssd()
+
     # ---- 3. trainer on the card vs on the CPU, small input, every mode ---
     check_small_trainers()
+    # ---- 3b. small serve on the card vs on the CPU ----------------------
+    check_small_serve()
 
     # ---- 4. the three trainer paths, counted ----------------------------
     from repro_torch.launch import train
@@ -241,19 +274,23 @@ def main() -> int:
             cli + ["--layerwise", "--bit-budget", str(BIT_BUDGET),
                    "--censor"])),
         {"quantize_dequantize_vec_rl": 2 * STEPS}, (1, 8), d))
+    path_launches.append(serve_path())
     launches = {k: sum(pl[k] for pl in path_launches) for k in kernels.KERNELS}
 
     # ---- 5. timing -------------------------------------------------------
     rows = []
 
-    def entry(name, source, replaces, fn, plain, nbytes, iters=20):
+    def entry(name, source, replaces, fn, plain, nbytes, iters=20, flops=0):
         ms = time_ms(fn, iters)
         plain_ms = time_ms(plain, 3, warmup=1)
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = flops / F32_FLOPS * 1e3
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "bound_by": "bytes", "library_ms": None})
+                     "bound_ms": max(by_bytes, by_ops),
+                     "bound_by": "operations" if by_ops > by_bytes
+                     else "bytes", "library_ms": None})
 
     qsrc = "src/repro_torch/csrc/quantize.cu"
     qrep = "src/repro/kernels/quantize/quantize.py:"
@@ -281,16 +318,209 @@ def main() -> int:
           lambda: pack_ops.unpack4(recv, d),
           lambda: pack_ops.unpack4_ref(recv, d),
           recv.shape[0] * (plen + d))
+    del q_path, recv
+    torch.cuda.empty_cache()
+    ssd_in = ssd_inputs(SSD_SERVE, torch.float32, 21)
+    bc, q, h, p, n = SSD_SERVE
+    entry("ssd_intra", "src/repro_torch/csrc/ssd.cu",
+          "src/repro/kernels/ssd/ssd.py:71",
+          lambda: ssd_ops.ssd_intra(*ssd_in),
+          lambda: ssd_ops.ssd_intra_ref(*ssd_in),
+          4 * (2 * bc * q * h * p + 2 * bc * q * h + 2 * bc * q * n),
+          flops=bc * q * (q + 1) // 2 * (2 * p * h + 2 * n))
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.4f} ms by bytes, reckoned), "
-              f"{r['launches']} launches on the three paths")
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, reckoned), "
+              f"{r['launches']} launches on the four paths")
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def ssd_inputs(shape, dtype, seed):
+    """K6's inputs on the card: x, b, c ~ N(0, 1), dt = softplus(N(0, 1)),
+    la a decreasing cumulative sum (as tests/test_ssd_kernel.py draws them)."""
+    import torch
+    import torch.nn.functional as F
+    bc, q, h, p, n = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device="cuda")
+    x, dt = rn(bc, q, h, p), F.softplus(rn(bc, q, h))
+    la = torch.cumsum(-rn(bc, q, h).abs() * 0.3, dim=1)
+    b, c = rn(bc, q, n), rn(bc, q, n)
+    return [t.to(dtype).contiguous() for t in (x, dt, la, b, c)]
+
+
+def check_ssd() -> float:
+    """Phase 2b: K6 against its plain version at the serving shape and the
+    ragged ones, float32 and bfloat16; then a two-group ssd_scan on the card
+    against the CPU.  Returns the max abs error at the serving shape in
+    float32 (the path's inputs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import ssm
+    serve_err = 0.0
+    for shape in [SSD_SERVE] + SSD_RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = ssd_inputs(shape, dtype, sum(shape))
+            y = ssd_ops.ssd_intra(*ins)
+            ref = ssd_ops.ssd_intra_ref(*ins)
+            torch.cuda.synchronize()
+            e = float((y - ref).abs().max())
+            scale = float(ref.abs().max())
+            tag = f"ssd_intra {shape} {dtype}"
+            if not (torch.isfinite(y).all() and e <= SSD_REL * scale):
+                fail(f"{tag}: max abs err {e} > {SSD_REL} x max |plain| "
+                     f"{scale}")
+            print(f"  {tag}: max abs err {e:.3e} = {e / scale:.2e} x "
+                  f"max |plain| ({scale:.1f})")
+            if shape == SSD_SERVE and dtype == torch.float32:
+                serve_err = e
+            del ins, y, ref
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(9)
+    bsz, s, h, p, g, n = 2, 600, 16, 64, 2, 64    # 3 chunks of 256, padded
+    cpu = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.normal(size=(bsz, s, h, p)),
+        np.log1p(np.exp(rng.normal(size=(bsz, s, h)) - 1.0)),
+        np.log(np.linspace(1.0, 16.0, h)),
+        rng.normal(size=(bsz, s, g, n)), rng.normal(size=(bsz, s, g, n)))]
+    before = kernels.LAUNCHES["ssd_intra"]
+    y, st = ssm.ssd_scan(*(t.cuda() for t in cpu), chunk=256)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["ssd_intra"] != before + g:
+        fail("ssd_scan with 2 groups did not launch K6 once per group")
+    y_ref, st_ref = ssm.ssd_scan(*cpu, chunk=256)
+    for name, a, b in (("y", y, y_ref), ("state", st, st_ref)):
+        e = float((a.cpu() - b).abs().max())
+        if e > 1e-4 * float(b.abs().max()):
+            fail(f"ssd_scan G=2: {name} card vs CPU max abs err {e}")
+    print(f"  ssd_scan (B {bsz}, S {s}, H {h}, G {g}, chunk 256): card == "
+          "CPU within 1e-4 x max, K6 once per group")
+    return serve_err
+
+
+def check_small_serve():
+    """Phase 3b: mamba2-smoke served on the card and on the CPU from the
+    same weights: prefill of a 20-token prompt, then 4 teacher-forced decode
+    steps; logits and caches to rtol 1e-4 / atol 1e-5."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import mamba2_2_7b
+    from repro_torch.dist.serve import Server
+    from repro_torch.models import ssm
+    from repro_torch.tree import map_leaves
+
+    cfg = mamba2_2_7b.smoke_config()
+    params = ssm.init(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab, (2, 24)))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        pd = map_leaves(lambda t: t.to(dev), params)
+        server = Server(model=ssm, cfg=cfg, batch_size=2, device=dev)
+        tk = tokens.to(dev)
+        before = kernels.LAUNCHES["ssd_intra"]
+        lg, cache = server.prefill(pd, {"tokens": tk[:, :20]})
+        seq = [(lg, cache["conv"], cache["state"])]
+        for i in range(20, 24):
+            pos = torch.full((2,), i, dtype=torch.int32, device=dev)
+            lg, cache = server.decode(pd, tk[:, i], cache, pos)
+            seq.append((lg, cache["conv"], cache["state"]))
+        launched = kernels.LAUNCHES["ssd_intra"] - before
+        if launched != (cfg.n_layers if dev == "cuda" else 0):
+            fail(f"small serve on {dev}: K6 launched {launched} times")
+        outs[dev] = [[t.cpu() for t in step] for step in seq]
+    for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        for name, x, y in zip(("logits", "conv", "state"), a, b):
+            if not torch.allclose(x, y, rtol=1e-4, atol=1e-5):
+                fail(f"small serve step {i}: {name} card vs CPU max abs err "
+                     f"{float((x - y).abs().max())}")
+    e = max(float((x - y).abs().max()) for a, b in zip(outs["cuda"],
+                                                        outs["cpu"])
+            for x, y in zip(a, b))
+    print(f"  small serve (mamba2-smoke, B 2, prompt 20, 4 decode steps): "
+          f"card == CPU within rtol 1e-4 / atol 1e-5 (max abs err {e:.2e}); "
+          f"K6 {cfg.n_layers} launches on the card")
+
+
+def serve_path():
+    """Path 4: full mamba2-2.7b through launch/serve.py's run, every launch
+    count at 0 just before; checks the launches, the logits and the
+    prefill / decode consistency; prints one JSON line and returns the
+    launch counts."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+    from repro_torch.models.config import num_params
+    from repro_torch.tree import leaves_with_path
+
+    print("path serve:")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = serve.run(serve.parse_args(SERVE_ARGS))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params = out["cfg"], out["params"]
+    print(f"  launches: {launches}")
+    want = {"ssd_intra": cfg.n_layers * len(out["requests"])}
+    for k in kernels.KERNELS:
+        if launches[k] != want.get(k, 0):
+            fail(f"path serve: {k} launched {launches[k]} times, expected "
+                 f"{want.get(k, 0)}")
+    n = sum(t.numel() for _, t in leaves_with_path(params))
+    if not n == num_params(cfg) == SERVE_PARAMS:
+        fail(f"mamba2-2.7b has {n} parameters, not {SERVE_PARAMS}")
+    for i, (_, res) in enumerate(out["requests"]):
+        for name in ("prefill_logits", "decode_logits"):
+            if not torch.isfinite(res[name]).all():
+                fail(f"path serve request {i}: {name} not finite")
+    # prefill / decode consistency: one forward over the second batch's
+    # prompt and its first CONSIST_STEPS generated tokens
+    tokens, res = out["requests"][1]
+    s = tokens.shape[1]
+    seq = torch.cat([tokens, res["tokens"][:, :CONSIST_STEPS]], dim=1)
+    with torch.inference_mode():
+        h = ssm.forward(params, seq, cfg)
+        full = L.unembed(params["embed"], h[:, s - 1:], cfg)
+    got = torch.cat([res["prefill_logits"][:, None],
+                     res["decode_logits"][:CONSIST_STEPS].transpose(0, 1)],
+                    dim=1)
+    e = float((got - full).abs().max())
+    if not torch.allclose(got, full, rtol=CONSIST_TOL, atol=CONSIST_TOL):
+        fail(f"path serve: prefill / decode logits differ from one forward "
+             f"over {seq.shape[1]} positions by up to {e}")
+    print(f"  prefill + {CONSIST_STEPS} decode steps == one forward over "
+          f"{seq.shape[1]} positions within {CONSIST_TOL} (max abs err "
+          f"{e:.2e}, max |logit| {float(full.abs().max()):.2f})")
+    dec = [sorted(r["decode_s"]) for _, r in out["requests"]]
+    med = [d[len(d) // 2] for d in dec]
+    batch = seq.shape[0]
+    print(json.dumps({"serve": {
+        "arch": cfg.name, "params": n, "batch": batch,
+        "prompt_len": [t.shape[1] for t, _ in out["requests"]],
+        "gen_len": len(dec[0]),
+        "prefill_s": [r["prefill_s"] for _, r in out["requests"]],
+        "decode_ms_per_step_median": [1e3 * m for m in med],
+        "decode_tok_per_s": [batch * len(d) / sum(d) for d in dec],
+        "max_memory_allocated_bytes": peak,
+        "consistency_max_abs_err": e, "launches": launches}}))
+    del out, params, h, full
+    torch.cuda.empty_cache()
+    return launches
 
 
 def per_tensor_run():

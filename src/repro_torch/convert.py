@@ -15,8 +15,10 @@ from .tree import ParamLayout
 
 
 def params_from_jax(np_tree, device=None):
-    """Nested dict of numpy arrays (``repro.models.encdec.init``'s pytree)
-    -> the same dict of tensors on `device`."""
+    """Nested dict of numpy arrays -> the same dict of tensors on `device`.
+    Covers the pytrees of ``repro.models.encdec.init`` and
+    ``repro.models.ssm.init`` (stacked ``blocks/mamba/*`` and ``blocks/ln``),
+    whose leaf names, shapes and layouts the port keeps."""
     dev = resolve_device(device)
     if isinstance(np_tree, dict):
         return {k: params_from_jax(v, dev) for k, v in np_tree.items()}

@@ -18,3 +18,9 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def generator(seed: int, device=None) -> torch.Generator:
+    """A generator seeded with `seed` on ``resolve_device(device)``: the
+    card unless the caller asks for the CPU, raising without a card."""
+    return torch.Generator(device=resolve_device(device)).manual_seed(seed)

@@ -8,7 +8,7 @@ count to 0, so a run can show which kernels its main path went through.
 from __future__ import annotations
 
 KERNELS = ("quantize_dequantize", "quantize_dequantize_vec_r",
-           "quantize_dequantize_vec_rl", "pack4", "unpack4")
+           "quantize_dequantize_vec_rl", "pack4", "unpack4", "ssd_intra")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 

@@ -1,7 +1,7 @@
 """Architecture registry: --arch <id> -> (config, model module).
 
-Only the audio family (whisper-tiny) is ported so far; the other
-architectures of ``repro/models/registry.py`` raise."""
+The audio family (whisper-tiny) and the ssm family (mamba2-2.7b) are ported
+so far; the other architectures of ``repro/models/registry.py`` raise."""
 from __future__ import annotations
 
 import importlib
@@ -9,9 +9,10 @@ from typing import Any
 
 from .config import ArchConfig
 
-ARCHS = ["whisper-tiny"]
+ARCHS = ["whisper-tiny", "mamba2-2.7b"]
 
-_FAMILY_MODULE = {"audio": "repro_torch.models.encdec"}
+_FAMILY_MODULE = {"audio": "repro_torch.models.encdec",
+                  "ssm": "repro_torch.models.ssm"}
 
 
 def get_config(arch: str, smoke: bool = False, **kw) -> ArchConfig:
@@ -25,5 +26,6 @@ def get_config(arch: str, smoke: bool = False, **kw) -> ArchConfig:
 
 
 def get_model(cfg: ArchConfig) -> Any:
-    """The model module: init, loss_fn."""
+    """The model module: init, loss_fn (and, for 'ssm', init_cache, prefill,
+    decode_step)."""
     return importlib.import_module(_FAMILY_MODULE[cfg.family])

@@ -26,6 +26,13 @@ def leaves_with_path(tree, prefix=()) -> list:
     return [(prefix, tree)]
 
 
+def map_leaves(fn, tree):
+    """The same nested dict with ``fn`` applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def _set(tree: dict, path: tuple, value) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})

@@ -26,7 +26,7 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
              or k == "repro" or k.startswith("repro."))
 assert not bad, bad
-assert len(mods) >= 20, mods
+assert len(mods) >= 38, mods
 print(len(mods))
 """
 
@@ -76,6 +76,20 @@ def test_entry_points_raise_without_a_card():
         init_state(lambda g: encdec.init(g, cfg), 0, dcfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--smoke", "--steps", "1"])
+
+    from repro_torch.configs import mamba2_2_7b
+    from repro_torch.device import generator
+    from repro_torch.dist.serve import Server
+    from repro_torch.launch import serve
+    from repro_torch.models import ssm
+
+    mcfg = mamba2_2_7b.smoke_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(model=ssm, cfg=mcfg, batch_size=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke", "--gen-len", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ssm.init(generator(0), mcfg)
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -7,6 +7,9 @@ fixture decides, at run time).  Run on the card with
 
 The file imports no JAX, so it also runs where only PyTorch is installed.
 Levels, hats and packed bytes must be bitwise equal to the plain versions.
+The SSD kernel (K6) sums in float32 in another order than its plain version:
+it is held to max |kernel - plain| <= 1e-5 * max |plain| (bf16 inputs are
+the same rounded values on both sides, so the bound is the same).
 """
 import numpy as np
 import pytest
@@ -15,6 +18,8 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.quantize import ops as q_ops
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.models import ssm
 
 pytestmark = pytest.mark.gpu
 
@@ -25,6 +30,7 @@ SIZES = [1, 127, 128, 129, 700, 33_000]
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the port's kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     return torch.device("cuda")
 
 
@@ -104,3 +110,60 @@ def test_wrappers_raise_on_bad_input(cuda):
     x = torch.zeros((4, 8), device=cuda)
     with pytest.raises(ValueError):
         q_ops.quantize_dequantize(x.t(), x.t(), x.t(), 1.0, 15.0)
+
+
+SSD_REL = 1e-5
+
+
+def _ssd_inputs(bc, q, h, p, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(bc, q, h, p))
+    dt = np.log1p(np.exp(rng.normal(size=(bc, q, h))))
+    la = np.cumsum(-np.abs(rng.normal(size=(bc, q, h))) * 0.3, axis=1)
+    b = rng.normal(size=(bc, q, n))
+    c = rng.normal(size=(bc, q, n))
+    return [torch.from_numpy(a.astype(np.float32)) for a in (x, dt, la, b, c)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 256, 80, 64, 128),          # mamba2-2.7b's chunk, two rows
+    (2, 8, 5, 16, 16), (2, 32, 80, 16, 16), (2, 200, 5, 16, 16),
+    (3, 200, 80, 64, 128), (1, 64, 17, 65, 130),
+])
+def test_ssd_kernel_matches_plain(cuda, shape, dtype):
+    ins = [t.to(dtype).to(cuda) for t in _ssd_inputs(*shape, seed=sum(shape))]
+    before = kernels.LAUNCHES["ssd_intra"]
+    y = ssd_ops.ssd_intra(*ins)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ssd_intra"] == before + 1
+    ref = ssd_ops.ssd_intra_ref(*ins)
+    assert y.dtype == torch.float32 and y.shape == shape[:4]
+    err = float((y - ref).abs().max())
+    assert err <= SSD_REL * float(ref.abs().max()), err
+
+
+def test_ssd_kernel_has_no_backward(cuda):
+    x, dt, la, b, c = (t.to(cuda) for t in _ssd_inputs(1, 8, 2, 4, 4, 0))
+    x.requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd_ops.ssd_intra(x, dt, la, b, c)
+    with torch.no_grad():                     # no gradient needed: launches
+        ssd_ops.ssd_intra(x, dt, la, b, c)
+
+
+def test_ssd_scan_two_groups_card_vs_cpu(cuda):
+    rng = np.random.default_rng(9)
+    bsz, s, h, p, g, n = 2, 300, 8, 16, 2, 16
+    arrs = [rng.normal(size=(bsz, s, h, p)),
+            np.log1p(np.exp(rng.normal(size=(bsz, s, h)) - 1.0)),
+            np.log(np.linspace(1.0, 16.0, h)),
+            rng.normal(size=(bsz, s, g, n)), rng.normal(size=(bsz, s, g, n))]
+    cpu = [torch.from_numpy(a.astype(np.float32)) for a in arrs]
+    before = kernels.LAUNCHES["ssd_intra"]
+    y, st = ssm.ssd_scan(*(t.to(cuda) for t in cpu), chunk=128)
+    assert kernels.LAUNCHES["ssd_intra"] == before + g
+    y_ref, st_ref = ssm.ssd_scan(*cpu, chunk=128)
+    for a, b in ((y, y_ref), (st, st_ref)):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), err
