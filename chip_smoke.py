@@ -8,12 +8,16 @@ Phases, in order; any failure exits non-zero before the result line:
      source with nvcc (in parallel) and print its registers and spills;
   2. hold each wire kernel against its plain PyTorch version on the card, at
      the trainer's shapes (whisper-tiny, W = 4 rows of D = 56,355,840) and at
-     ragged sizes: levels, hats and packed bytes must be bitwise equal;
+     ragged sizes, unpack4 also at rows that start off 16-byte alignment:
+     levels, hats and packed bytes must be bitwise equal;
   2b. hold the SSD kernel (K6) against its plain version at the serving
-     shape (BC 16, Q 256, H 80, P 64, N 128) and at ragged shapes (Q 8, 32,
-     200; H 5, 80; N = P = 16), float32 and bfloat16 inputs, to
-     max |kernel - plain| <= 1e-5 max |plain| (float32 sums in another
-     order); and one two-group ``ssd_scan`` on the card against the CPU's;
+     shape (BC 16, Q 256, H 80, P 64, N 128), at ragged shapes (Q 8, 32,
+     200; H 5, 80; N = P = 16), at the longest chunk (Q 768), at uneven
+     tiles past 256 keys (Q 300), at H = 13 (not a multiple of the head
+     group) and under a steep decay (la falling by 200 per step), float32
+     and bfloat16 inputs, to max |kernel - plain| <= 1e-5 max |plain|
+     (3xTF32 products on the tensor cores, sums in another order); and one
+     two-group ``ssd_scan`` on the card against the CPU's;
   3. check the trainer against the same trainer on the CPU (plain versions)
      on a small input (whisper-tiny-smoke, 2 steps, shared draws), in each
      quantizer mode: global 4-bit, per_tensor, layerwise with per-leaf
@@ -44,9 +48,10 @@ Phases, in order; any failure exits non-zero before the result line:
      prefill / decode logits of the second batch equal, to atol = rtol =
      2e-3, to one ``forward`` over its prompt and first 24 generated
      tokens; prints one JSON line;
-  5. time each kernel (CUDA events) beside its plain version and its bound,
-     and print one JSON line listing them with their launches summed over
-     the four paths.
+  5. time each kernel (CUDA events) beside its plain version and its bound
+     (K6's for its route: bytes against 3 x its operations at the TF32
+     rate, printed beside its old float32 CUDA-core bound), and print one
+     JSON line listing them with their launches summed over the four paths.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card; it
 imports nothing of JAX and nothing of the JAX package.
 """
@@ -59,6 +64,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
+SSD_PASSES = 3              # K6's 3xTF32: three TF32 products per product
 W, STEPS, BITS = 4, 5, 4
 CHAIN_SRC = [1, 0, 2, 1, 3, 2]   # source worker of each directed chain edge
 DEGREE = [CHAIN_SRC.count(i) for i in range(W)]
@@ -72,6 +79,10 @@ SMALL_TAU = 14.92
 # SSD kernel: mamba2-2.7b's prefill of B = 4 x 1024 tokens in chunks of 256
 SSD_SERVE = (16, 256, 80, 64, 128)     # (BC, Q, H, P, N)
 SSD_RAGGED = [(4, q, h, 16, 16) for q in (8, 32, 200) for h in (5, 80)]
+# the longest chunk (three spans of keys), uneven tiles past 256, H not a
+# multiple of the kernel's head group of 10
+SSD_LONG = [(1, 768, 16, 64, 128), (2, 300, 8, 64, 128), (2, 128, 13, 64, 128)]
+SSD_STEEP = (4, 256, 80, 64, 128)      # la falls by 200 per step
 SSD_REL = 1e-5          # max |kernel - plain| / max |plain|
 SERVE_ARGS = ["--full", "--batch", "4", "--prompt-len", "1024", "1000",
               "--gen-len", "32"]
@@ -240,10 +251,21 @@ def main() -> int:
         if not (bitwise_equal(p, pack_ops.pack4_ref(qs))
                 and bitwise_equal(pack_ops.unpack4(p, n), qs)):
             fail(f"pack/unpack at n={n} != plain")
+    # unpack4 rows starting off 16-byte alignment (n % 16 != 0: the byte
+    # loop) and rows of whole groups (n % 256 == 0: the 16-byte path)
+    for rows, n in ((3, 33_001), (6, 33_001), (3, 4_104), (6, 4_104),
+                    (6, 65_536)):
+        qs = torch.randint(0, 16, (rows, n), generator=g, device="cuda",
+                           dtype=torch.uint8)
+        p = pack_ops.pack4_ref(qs)
+        u = pack_ops.unpack4(p, n)
+        if not (bitwise_equal(u, pack_ops.unpack4_ref(p, n))
+                and bitwise_equal(u, qs)):
+            fail(f"unpack4 at {rows} rows of n={n} != plain")
     err["pack4"] = max_abs_err([(pk, pk_ref)])
     err["unpack4"] = max_abs_err([(un, un_ref)])
-    print(f"  pack4 {tuple(q_path.shape)} / unpack4 {tuple(recv.shape)} and "
-          "ragged n: byte-identical, round trip exact")
+    print(f"  pack4 {tuple(q_path.shape)} / unpack4 {tuple(recv.shape)}, "
+          "ragged n and unaligned rows: byte-identical, round trip exact")
     del q_path, recv, pk, pk_ref, un, un_ref
     torch.cuda.empty_cache()
 
@@ -280,11 +302,12 @@ def main() -> int:
     # ---- 5. timing -------------------------------------------------------
     rows = []
 
-    def entry(name, source, replaces, fn, plain, nbytes, iters=20, flops=0):
+    def entry(name, source, replaces, fn, plain, nbytes, iters=20, flops=0,
+              flop_rate=F32_FLOPS):
         ms = time_ms(fn, iters)
         plain_ms = time_ms(plain, 3, warmup=1)
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = flops / F32_FLOPS * 1e3
+        by_ops = flops / flop_rate * 1e3
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
@@ -322,12 +345,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssd_in = ssd_inputs(SSD_SERVE, torch.float32, 21)
     bc, q, h, p, n = SSD_SERVE
+    ssd_flops = bc * q * (q + 1) // 2 * (2 * p * h + 2 * n)
     entry("ssd_intra", "src/repro_torch/csrc/ssd.cu",
           "src/repro/kernels/ssd/ssd.py:71",
           lambda: ssd_ops.ssd_intra(*ssd_in),
           lambda: ssd_ops.ssd_intra_ref(*ssd_in),
           4 * (2 * bc * q * h * p + 2 * bc * q * h + 2 * bc * q * n),
-          flops=bc * q * (q + 1) // 2 * (2 * p * h + 2 * n))
+          flops=SSD_PASSES * ssd_flops, flop_rate=TF32_FLOPS)
+    print(f"  ssd_intra bound on its route (3xTF32 on the tensor cores): "
+          f"{rows[-1]['bound_ms']:.4f} ms by {rows[-1]['bound_by']}; on the "
+          f"float32 CUDA cores it was {ssd_flops / F32_FLOPS * 1e3:.4f} ms "
+          "by operations")
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, reckoned), "
@@ -340,9 +368,10 @@ def main() -> int:
     return 0
 
 
-def ssd_inputs(shape, dtype, seed):
+def ssd_inputs(shape, dtype, seed, steep=False):
     """K6's inputs on the card: x, b, c ~ N(0, 1), dt = softplus(N(0, 1)),
-    la a decreasing cumulative sum (as tests/test_ssd_kernel.py draws them)."""
+    la a decreasing cumulative sum (as tests/test_ssd_kernel.py draws them);
+    with steep, la falls by 200 per step instead."""
     import torch
     import torch.nn.functional as F
     bc, q, h, p, n = shape
@@ -350,15 +379,18 @@ def ssd_inputs(shape, dtype, seed):
     rn = lambda *s: torch.randn(s, generator=g, device="cuda")
     x, dt = rn(bc, q, h, p), F.softplus(rn(bc, q, h))
     la = torch.cumsum(-rn(bc, q, h).abs() * 0.3, dim=1)
+    if steep:
+        la = torch.cumsum(torch.full_like(la, -200.0), dim=1)
     b, c = rn(bc, q, n), rn(bc, q, n)
     return [t.to(dtype).contiguous() for t in (x, dt, la, b, c)]
 
 
 def check_ssd() -> float:
-    """Phase 2b: K6 against its plain version at the serving shape and the
-    ragged ones, float32 and bfloat16; then a two-group ssd_scan on the card
-    against the CPU.  Returns the max abs error at the serving shape in
-    float32 (the path's inputs)."""
+    """Phase 2b: K6 against its plain version at the serving shape, the
+    ragged ones, the long ones and under a steep decay, float32 and
+    bfloat16; then a two-group ssd_scan on the card against the CPU.
+    Returns the max abs error at the serving shape in float32 (the path's
+    inputs)."""
     import numpy as np
     import torch
 
@@ -366,21 +398,22 @@ def check_ssd() -> float:
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.models import ssm
     serve_err = 0.0
-    for shape in [SSD_SERVE] + SSD_RAGGED:
+    cases = [(sh, False) for sh in [SSD_SERVE] + SSD_RAGGED + SSD_LONG]
+    for shape, steep in cases + [(SSD_STEEP, True)]:
         for dtype in (torch.float32, torch.bfloat16):
-            ins = ssd_inputs(shape, dtype, sum(shape))
+            ins = ssd_inputs(shape, dtype, sum(shape), steep)
             y = ssd_ops.ssd_intra(*ins)
             ref = ssd_ops.ssd_intra_ref(*ins)
             torch.cuda.synchronize()
             e = float((y - ref).abs().max())
             scale = float(ref.abs().max())
-            tag = f"ssd_intra {shape} {dtype}"
+            tag = f"ssd_intra {shape} {dtype}{' steep decay' if steep else ''}"
             if not (torch.isfinite(y).all() and e <= SSD_REL * scale):
                 fail(f"{tag}: max abs err {e} > {SSD_REL} x max |plain| "
                      f"{scale}")
             print(f"  {tag}: max abs err {e:.3e} = {e / scale:.2e} x "
                   f"max |plain| ({scale:.1f})")
-            if shape == SSD_SERVE and dtype == torch.float32:
+            if shape == SSD_SERVE and dtype == torch.float32 and not steep:
                 serve_err = e
             del ins, y, ref
     torch.cuda.empty_cache()

@@ -17,9 +17,21 @@
 // 56,355,840 levels, at least 0.10 ms at 3.35 TB/s.  unpack of the 2E = 6
 // directed-edge rows moves 0.51 GB, at least 0.15 ms.
 //
-// Design: one byte per thread per grid-stride iteration, neighbouring threads
-// on neighbouring bytes; the padding is produced by masking the loads, not by
-// padding the input.  Simple and right first; wider accesses are later work.
+// pack4 (K4): one byte per thread per grid-stride iteration, neighbouring
+// threads on neighbouring bytes; the padding is produced by masking the loads,
+// not by padding the input.
+//
+// unpack4 (K5), vectorized.  Its first version read and wrote one byte per
+// thread per iteration (32 B per warp store instruction) and loaded every
+// packed byte twice, once per nibble: bound by load/store instructions, at 40%
+// of its byte bound.  Now one thread takes 16 packed bytes of a group with one
+// 16-byte load and writes their 16 low nibbles at g*256 + c and their 16 high
+// nibbles at g*256 + 128 + c with two 16-byte stores: each packed byte is read
+// once, and every access of a warp covers whole 32-byte sectors.  Packed rows
+// are always 16-byte aligned (plen is a multiple of 128); an output row starts
+// at row*n, so it takes the vector path when its start is 16-byte aligned.
+// Other rows, and the last partial group of every row, take a byte loop in the
+// same kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,13 +55,31 @@ __global__ void pack4_kernel(const uint8_t* __restrict__ q, uint8_t* __restrict_
   }
 }
 
+__device__ __forceinline__ uint32_t lo_nibbles(uint32_t w) { return w & 0x0F0F0F0Fu; }
+__device__ __forceinline__ uint32_t hi_nibbles(uint32_t w) { return (w >> 4) & 0x0F0F0F0Fu; }
+
 __global__ void unpack4_kernel(const uint8_t* __restrict__ p, uint8_t* __restrict__ out,
                                int64_t n, int64_t plen) {
   const int64_t row = blockIdx.y;
   const uint8_t* prow = p + row * plen;
   uint8_t* orow = out + row * n;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool vec = ((reinterpret_cast<uintptr_t>(prow) |
+                     reinterpret_cast<uintptr_t>(orow)) & 15) == 0;
+  const int64_t full = vec ? n >> 8 : 0;           // whole 256-level groups
+  for (int64_t v = tid; v < full * 8; v += stride) {
+    const int64_t g = v >> 3;
+    const int c = (int)(v & 7) << 4;
+    const uint4 w = *reinterpret_cast<const uint4*>(prow + (g << 7) + c);
+    const uint4 lo = make_uint4(lo_nibbles(w.x), lo_nibbles(w.y), lo_nibbles(w.z),
+                                lo_nibbles(w.w));
+    const uint4 hi = make_uint4(hi_nibbles(w.x), hi_nibbles(w.y), hi_nibbles(w.z),
+                                hi_nibbles(w.w));
+    *reinterpret_cast<uint4*>(orow + (g << 8) + c) = lo;
+    *reinterpret_cast<uint4*>(orow + (g << 8) + 128 + c) = hi;
+  }
+  for (int64_t i = (full << 8) + tid; i < n; i += stride) {
     const int64_t k = i & 255;
     const uint8_t b = prow[((i >> 8) << 7) + (k & 127)];
     orow[i] = k < 128 ? (uint8_t)(b & 0xF) : (uint8_t)(b >> 4);
@@ -78,7 +108,8 @@ int repro_pack4(const void* q, void* out, long long rows, long long n, long long
 // (rows, plen) packed bytes -> (rows, n) uint8 levels.
 int repro_unpack4(const void* packed, void* out, long long rows, long long n,
                   long long plen, void* stream) {
-  unpack4_kernel<<<grid_for(n, rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  // one thread per 32 levels on the vector path
+  unpack4_kernel<<<grid_for((n + 31) / 32, rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed), static_cast<uint8_t*>(out), n, plen);
   return (int)cudaGetLastError();
 }

@@ -5,6 +5,14 @@ goes to the kernel (or the call raises); a CPU tensor takes the plain version
 in ``ref.py``.  There is no fallback between the two.  The kernel has no
 backward (nor has the JAX package's), so on the card a call that autograd
 would need a gradient through raises.
+
+Precision: the kernel takes both of its products (C.B^T and W.x) on the
+tensor cores in 3xTF32: each float32 operand is split into two TF32 parts
+and three of the four part products are summed in float32.  That is
+float32-accurate (about 1e-6 of max |y| at the serving shape), not bitwise
+equal to the plain version, which sums in another order; the card's tests
+hold the two to 1e-5 x max |y|.  TF32 alone (about 6e-4) would not pass.
+bf16 inputs are exact in TF32, so their low parts are skipped.
 """
 from __future__ import annotations
 

@@ -7,9 +7,10 @@ fixture decides, at run time).  Run on the card with
 
 The file imports no JAX, so it also runs where only PyTorch is installed.
 Levels, hats and packed bytes must be bitwise equal to the plain versions.
-The SSD kernel (K6) sums in float32 in another order than its plain version:
-it is held to max |kernel - plain| <= 1e-5 * max |plain| (bf16 inputs are
-the same rounded values on both sides, so the bound is the same).
+The SSD kernel (K6) takes its products on the tensor cores in 3xTF32 and sums
+in another order than its plain version: it is held to
+max |kernel - plain| <= 1e-5 * max |plain| (bf16 inputs are the same rounded
+values on both sides, so the bound is the same).
 """
 import numpy as np
 import pytest
@@ -103,6 +104,23 @@ def test_pack_kernels_match_plain(cuda, n, rows):
     _assert_bitwise(pk[rows - 1], pack_ops.pack4(q[rows - 1].contiguous()))
 
 
+@pytest.mark.parametrize("n", [33_001, 4_096 + 8, 4_096, 65_536, 256 * 1001])
+@pytest.mark.parametrize("rows", [3, 6])
+def test_unpack_kernel_any_row_alignment(cuda, n, rows):
+    """Rows start at row * n: with n % 16 != 0 all but the first start off
+    16-byte alignment and take the kernel's byte loop; with n a multiple of
+    256 every group is whole and takes the 16-byte path."""
+    rng = np.random.default_rng(n + rows)
+    q = torch.from_numpy(rng.integers(0, 16, (rows, n), dtype=np.uint8)).to(cuda)
+    pk = pack_ops.pack4_ref(q)
+    before = kernels.LAUNCHES["unpack4"]
+    un = pack_ops.unpack4(pk, n)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["unpack4"] == before + 1
+    _assert_bitwise(un, pack_ops.unpack4_ref(pk, n))
+    _assert_bitwise(un, q)
+
+
 def test_wrappers_raise_on_bad_input(cuda):
     q = torch.zeros(10, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
@@ -130,6 +148,9 @@ def _ssd_inputs(bc, q, h, p, n, seed):
     (2, 256, 80, 64, 128),          # mamba2-2.7b's chunk, two rows
     (2, 8, 5, 16, 16), (2, 32, 80, 16, 16), (2, 200, 5, 16, 16),
     (3, 200, 80, 64, 128), (1, 64, 17, 65, 130),
+    (1, 768, 16, 64, 128),          # the longest chunk: three spans of keys
+    (2, 300, 8, 64, 128),           # uneven tiles past 256 keys
+    (2, 128, 13, 64, 128),          # H not a multiple of the head group
 ])
 def test_ssd_kernel_matches_plain(cuda, shape, dtype):
     ins = [t.to(dtype).to(cuda) for t in _ssd_inputs(*shape, seed=sum(shape))]
@@ -139,6 +160,21 @@ def test_ssd_kernel_matches_plain(cuda, shape, dtype):
     assert kernels.LAUNCHES["ssd_intra"] == before + 1
     ref = ssd_ops.ssd_intra_ref(*ins)
     assert y.dtype == torch.float32 and y.shape == shape[:4]
+    err = float((y - ref).abs().max())
+    assert err <= SSD_REL * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_steep_decay_is_finite(cuda, dtype):
+    """la falls by 200 per step: exp of the differences above the diagonal
+    would overflow; the kernel masks the exponent, so y stays finite and
+    within the gate."""
+    x, dt, la, b, c = _ssd_inputs(2, 256, 12, 64, 128, seed=4)
+    la = torch.cumsum(torch.full_like(la, -200.0), dim=1)
+    ins = [t.to(dtype).to(cuda) for t in (x, dt, la, b, c)]
+    y = ssd_ops.ssd_intra(*ins)
+    ref = ssd_ops.ssd_intra_ref(*ins)
+    assert torch.isfinite(y).all()
     err = float((y - ref).abs().max())
     assert err <= SSD_REL * float(ref.abs().max()), err
 
