@@ -8,8 +8,12 @@ Phases, in order; any failure exits non-zero before the result line:
      source with nvcc (in parallel) and print its registers and spills;
   2. hold each wire kernel against its plain PyTorch version on the card, at
      the trainer's shapes (whisper-tiny, W = 4 rows of D = 56,355,840) and at
-     ragged sizes, unpack4 also at rows that start off 16-byte alignment:
-     levels, hats and packed bytes must be bitwise equal;
+     ragged sizes, unpack4 also at rows that start off 16-byte alignment,
+     and the codec (K1) at the shapes and widths of paths 5-7 (50 x 6 at 2
+     and 4 bits, 50 x 6 at 2 bits from a zero hat, 10 x 109,386 at 8 bits,
+     each with an R = 0 row; timed there too): levels, hats and packed
+     bytes must be bitwise equal, and the receiver's decode equal to the
+     sender's hat;
   2b. hold the SSD kernel (K6) against its plain version at the serving
      shape (BC 16, Q 256, H 80, P 64, N 128), at ragged shapes (Q 8, 32,
      200; H 5, 80; N = P = 16), at the longest chunk (Q 768), at uneven
@@ -27,6 +31,13 @@ Phases, in order; any failure exits non-zero before the result line:
      (B = 2, prompt 20: three chunks of 8, the last padded; then 4
      teacher-forced decode steps): logits and caches to rtol 1e-4 / atol
      1e-5, TF32 off;
+  3c. the paper's chain and graph Q-GADMM (N 20, d 6, ring with censoring)
+     and Q-SGADMM (MLP 32-24-10, N 6) on the card against the same steps
+     on the CPU, with the same draws: chain and graph widths and sent
+     masks equal, theta, hats and radii to atol 1e-5, duals to the sum
+     over the steps of 2 alpha rho max |hat difference| + 1e-6 max |lam|;
+     SGADMM theta within 1e-4 at all but 1e-3 of the positions; two codec
+     launches per quantized step;
   4. drive the three trainer paths at full whisper-tiny (W = 4 workers on a
      chain, 5 steps), each with every launch count at 0 just before:
        path 1, the CLI at 4 bits, global radius, packed wire: the codec
@@ -48,10 +59,32 @@ Phases, in order; any failure exits non-zero before the result line:
      prefill / decode logits of the second batch equal, to atol = rtol =
      2e-3, to one ``forward`` over its prompt and first 24 generated
      tokens; prints one JSON line;
+     then the paper's own algorithms through ``launch/paper.py``, each with
+     every launch count at 0 just before:
+       path 5, ``linreg`` at the paper's widths (N 50, 20,000 samples, d 6,
+         rho 24, 2 bits), 400 rounds of GADMM, Q-GADMM at 2 and 4 bits, GD,
+         QGD and ADIANA: the codec (K1) launched 2 x 400 times by each
+         Q-GADMM run, 400 by QGD, 400 by ADIANA, never by GADMM or GD and
+         no other kernel; Q-GADMM's bits per round 50 (b 6 + 64); Q-GADMM
+         at 2 bits within max |theta - theta*| < 3e-2 max(|theta*|, 1);
+       path 6, the same with Q-GADMM on the placement's ring with
+         censoring (the graph step): the same launches, some round
+         censored, each round's bits those of ``graph_bits_per_round`` from
+         its sent mask (payload per sender, one flag per worker), Q-GADMM
+         at 2 bits within the same bound;
+       path 7, ``dnn`` at the paper's MLP (784-128-64-10, 109,386
+         parameters, N 10, 8 bits), 40 rounds of Q-SGADMM and SGADMM: K1
+         twice per Q-SGADMM round, never for SGADMM; bits per round
+         10 (8 x 109,386 + 64); Q-SGADMM's accuracy within 0.08 of
+         SGADMM's;
+     each prints one JSON line;
   5. time each kernel (CUDA events) beside its plain version and its bound
      (K6's for its route: bytes against 3 x its operations at the TF32
      rate, printed beside its old float32 CUDA-core bound), and print one
-     JSON line listing them with their launches summed over the four paths.
+     JSON line listing them with their launches summed over the seven
+     paths, and the device's busy and idle share of paths 5-7, each a
+     ``launch/paper.py`` call cut to 100 (linreg) or 5 (dnn) rounds
+     (``torch.profiler``).
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card; it
 imports nothing of JAX and nothing of the JAX package.
 """
@@ -89,6 +122,12 @@ SERVE_ARGS = ["--full", "--batch", "4", "--prompt-len", "1024", "1000",
 SERVE_PARAMS = 2_831_296_000
 CONSIST_STEPS = 24      # decode steps of batch 2 held against one forward
 CONSIST_TOL = 2e-3      # atol = rtol, as tests/test_arch_smoke.py
+# the paper's experiments (launch/paper.py): Fig. 2 and Fig. 4
+LINREG_N, LINREG_D, LINREG_ROUNDS = 50, 6, 400
+DNN_N, DNN_D, DNN_BITS, DNN_ROUNDS = 10, 109_386, 8, 40
+THETA_TOL = 3e-2        # tests/test_gadmm.py: max |theta - theta*| / scale
+ACC_GAP = 0.08          # tests/test_sgadmm.py: Q-SGADMM vs SGADMM accuracy
+K1 = "quantize_dequantize"
 CODECS = (("row", "quantize_dequantize"),
           ("vec_r", "quantize_dequantize_vec_r"),
           ("vec_rl", "quantize_dequantize_vec_rl"))
@@ -232,6 +271,7 @@ def main() -> int:
                         for dtype in (torch.float32, torch.bfloat16)
                         for rows, n in ((W, d), (3, 33_001), (1, 129)))
         torch.cuda.empty_cache()
+    err[K1] = max(err[K1], codec_at_paper_shapes(q_ops))
     plen = pack_ops.packed_len(d)
     q_path, recv = pack_case(d)
     pk = pack_ops.pack4(q_path)
@@ -276,6 +316,8 @@ def main() -> int:
     check_small_trainers()
     # ---- 3b. small serve on the card vs on the CPU ----------------------
     check_small_serve()
+    # ---- 3c. the paper's algorithms on the card vs on the CPU -----------
+    check_small_paper()
 
     # ---- 4. the three trainer paths, counted ----------------------------
     from repro_torch.launch import train
@@ -297,6 +339,11 @@ def main() -> int:
                    "--censor"])),
         {"quantize_dequantize_vec_rl": 2 * STEPS}, (1, 8), d))
     path_launches.append(serve_path())
+    lin = ["linreg", "--rounds", str(LINREG_ROUNDS)]
+    path_launches.append(linreg_path("linreg_chain", lin))
+    path_launches.append(linreg_path(
+        "linreg_ring_censor", lin + ["--topology", "ring", "--censor"]))
+    path_launches.append(dnn_path())
     launches = {k: sum(pl[k] for pl in path_launches) for k in kernels.KERNELS}
 
     # ---- 5. timing -------------------------------------------------------
@@ -359,7 +406,8 @@ def main() -> int:
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, reckoned), "
-              f"{r['launches']} launches on the four paths")
+              f"{r['launches']} launches on the seven paths")
+    paper_idle_share()
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -755,6 +803,341 @@ def check_small_trainer(mode, kw):
     print(f"  small trainer {mode} (whisper-tiny-smoke, 2 steps): card == CPU "
           f"within tolerance, bit-synced on both; skip rates {skips}")
     return skips
+
+
+def _step_launches(fn, want: int, tag: str):
+    """Run fn() and fail unless it launched the codec `want` times and no
+    other kernel."""
+    from repro_torch import kernels
+    before = dict(kernels.LAUNCHES)
+    out = fn()
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.KERNELS}
+    if got != {k: (want if k == K1 else 0) for k in kernels.KERNELS}:
+        fail(f"{tag}: launches {got}, expected {want} of {K1} and no other")
+    return out
+
+
+def check_small_paper():
+    """Phase 3c: chain Q-GADMM (2 bits, 5 steps) and graph Q-GADMM (ring,
+    censored, 8 steps) on N 20, d 6, and Q-SGADMM on the MLP 32-24-10, N 6
+    (2 rounds), each on the card and on the CPU from the same state with
+    the same draws.  Chain and graph: widths and sent masks equal, theta,
+    hats and radii to atol 1e-5 (the local solve's batched product sums in
+    another order on each device); the duals integrate the hats, so their
+    bound grows each step by 2 alpha rho max |hat difference| + 1e-6
+    max |lam|.  SGADMM's theta within 1e-4 at all but 1e-3 of the
+    positions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import gadmm
+    from repro_torch.core.censor import CensorConfig
+    from repro_torch.core.quantizer import QuantizerConfig
+    from repro_torch.core.sgadmm import SGADMMConfig, SGADMMTrainer
+    from repro_torch.core.topology import ring_topology
+    from repro_torch.data.synthetic import (classification_shards,
+                                            regression_shards)
+    from repro_torch.device import generator
+    from repro_torch.models import mlp
+
+    n, d = 20, 6
+    xs, ys, _ = regression_shards(n_workers=n, samples=4000, d=d, seed=1)
+    xs, ys = torch.from_numpy(xs), torch.from_numpy(ys)
+    cfg = gadmm.GADMMConfig(rho=24.0, qcfg=QuantizerConfig(bits=2))
+    topo = ring_topology(n)
+    cen = CensorConfig(tau=0.5, xi=0.9)
+    g = torch.Generator().manual_seed(0)
+
+    def to(tup, dev):
+        return type(tup)(*(x.to(dev) for x in tup))
+
+    for kind in ("chain", "graph"):
+        if kind == "chain":
+            q = gadmm.make_quadratic(xs, ys, cfg.rho)
+            init = lambda dev: gadmm.init_state(n, d, cfg, device=dev)
+            fields = ("theta", "theta_hat", "lam", "radius", "bits")
+            steps = 5
+        else:
+            q = gadmm.make_graph_quadratic(xs, ys, cfg.rho, topo)
+            init = lambda dev: gadmm.graph_init_state(topo, d, cfg,
+                                                      device=dev)
+            fields = ("theta", "theta_hat", "lam", "radius", "bits", "sent")
+            steps = 8
+            tcs = {dev: gadmm.graph_consts(topo, device=dev)
+                   for dev in ("cpu", "cuda")}
+        sides = {dev: (init(dev), to(q, dev)) for dev in ("cpu", "cuda")}
+        censored, worst, lam_tol = 0, [0.0, 0.0], 0.0
+        for k in range(steps):
+            u = [torch.rand((n, d), generator=g) for _ in range(2)]
+            for dev, (st, qd) in sides.items():
+                ud = [x.to(dev) for x in u]
+                if kind == "chain":
+                    run = lambda: gadmm.gadmm_step(st, qd, cfg, u=ud)
+                else:
+                    run = lambda: gadmm.graph_step(st, qd, cfg, topo,
+                                                   censor=cen, u=ud,
+                                                   tc=tcs[dev])
+                st = (_step_launches(run, 2, f"small {kind} step {k}")
+                      if dev == "cuda" else run())
+                sides[dev] = (st, qd)
+            a, b = sides["cuda"][0], sides["cpu"][0]
+            # the duals integrate the hats: each step may add 2 alpha rho
+            # max |hat difference|, plus their own rounding
+            lam_tol += (2 * cfg.alpha * cfg.rho * max_abs_err(
+                [(a.theta_hat.cpu(), b.theta_hat)])
+                + 1e-6 * float(b.lam.abs().max()))
+            for f in fields:
+                x, y = getattr(a, f).cpu(), getattr(b, f)
+                if f in ("bits", "sent"):
+                    ok = torch.equal(x, y)
+                else:
+                    e = max_abs_err([(x, y)])
+                    worst[f == "lam"] = max(worst[f == "lam"], e)
+                    ok = e <= (lam_tol if f == "lam" else 1e-5)
+                if not ok:
+                    fail(f"small {kind} step {k}: {f} card != CPU (max abs "
+                         f"err {max_abs_err([(x, y)])}, duals' bound "
+                         f"{lam_tol:.3e})")
+            if kind == "graph":
+                censored += int((~b.sent).sum())
+        if kind == "graph" and not censored:
+            fail("small graph: censoring silenced no worker")
+        print(f"  small {kind} Q-GADMM (N {n}, d {d}, {steps} steps"
+              f"{', ring, censored' if kind == 'graph' else ''}): widths"
+              f"{' and sent masks' if kind == 'graph' else ''} equal, "
+              f"theta / hats / radii within 1e-5 (max abs err "
+              f"{worst[0]:.3e}), duals {worst[1]:.3e} within {lam_tol:.3e}, "
+              "K1 twice per step")
+
+    layers = [(32, 24), (24, 10)]
+    cx, cy = classification_shards(n_workers=6, samples=1800, dim=32, seed=0)
+    p0 = mlp.init_params(generator(0, "cpu"), layers)
+    scfg = SGADMMConfig(gadmm=gadmm.GADMMConfig(
+        rho=1.0, qcfg=QuantizerConfig(bits=8), alpha=0.01), local_iters=10,
+        local_lr=3e-3, batch_size=64)
+    trs = {dev: SGADMMTrainer(mlp.loss_fn,
+                              {k: v.to(dev) for k, v in p0.items()}, 6, scfg,
+                              device=dev) for dev in ("cpu", "cuda")}
+    rng = np.random.default_rng(0)
+    for k in range(2):
+        sel = rng.integers(0, cx.shape[1], size=(6, 64))
+        xb = torch.from_numpy(np.take_along_axis(cx, sel[:, :, None], 1))
+        yb = torch.from_numpy(np.take_along_axis(cy, sel, 1))
+        u = [torch.rand((6, trs["cpu"].d), generator=g) for _ in range(2)]
+        trs["cpu"].train_step(xb, yb, u=u)
+        _step_launches(lambda: trs["cuda"].train_step(
+            xb.cuda(), yb.cuda(), u=[x.cuda() for x in u]), 2,
+            f"small sgadmm round {k}")
+        a, b = trs["cuda"].state, trs["cpu"].state
+        frac = float(((a.theta.cpu() - b.theta).abs() > 1e-4).float().mean())
+        if not torch.equal(a.bits.cpu(), b.bits) or frac > 1e-3:
+            fail(f"small sgadmm round {k}: theta differs at {frac:.2e} "
+                 "of the positions (or the widths differ)")
+    print(f"  small Q-SGADMM (MLP 32-24-10, N 6, 2 rounds): card == CPU "
+          f"within tolerance (theta beyond 1e-4 at {frac:.2e}), K1 twice "
+          "per round")
+
+
+def linreg_path(mode, argv):
+    """Paths 5 and 6: ``launch/paper.py linreg`` with every launch count at
+    0 just before; checks each run's launches, Q-GADMM's wire bits and
+    convergence; prints one JSON line and returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import paper
+
+    print(f"path {mode}:")
+    kernels.reset_launches()
+    out = paper.run_linreg(paper.parse_args(argv))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"  launches: {launches}")
+    n, d, r = LINREG_N, LINREG_D, LINREG_ROUNDS
+    want_run = {"GADMM": 0, "Q-GADMM-2b": 2 * r, "Q-GADMM-4b": 2 * r,
+                "GD": 0, "QGD": r, "ADIANA": r}
+    rows = {row["alg"]: row for row in out["rows"]}
+    if sorted(rows) != sorted(want_run):
+        fail(f"path {mode}: runs {sorted(rows)}")
+    for alg, want in want_run.items():
+        got = rows[alg]["launches"]
+        if got != ({K1: want} if want else {}):
+            fail(f"path {mode}: {alg} launched {got}, expected {want} of {K1}")
+    for k in kernels.KERNELS:
+        if launches[k] != (sum(want_run.values()) if k == K1 else 0):
+            fail(f"path {mode}: {k} launched {launches[k]} times in all")
+    for b in (2, 4):
+        row = rows[f"Q-GADMM-{b}b"]
+        per = b * d + 64
+        if "sent_per_round" in row:
+            sent = np.asarray(row["sent_per_round"], float)
+            want_bits = float(np.mean(sent * per + n))
+            if not sent.min() < n:
+                fail(f"path {mode}: Q-GADMM-{b}b censored no worker")
+        else:
+            want_bits = float(n * per)
+        if row["bits_per_round"] != want_bits:
+            fail(f"path {mode}: Q-GADMM-{b}b bits per round "
+                 f"{row['bits_per_round']} != closed form {want_bits}")
+    bound = THETA_TOL * out["theta_star_scale"]
+    err = rows["Q-GADMM-2b"]["max_theta_err"]
+    if not err < bound:
+        fail(f"path {mode}: Q-GADMM-2b max |theta - theta*| {err} >= {bound}")
+    for alg, row in rows.items():
+        if not np.isfinite(row["final_loss"]):
+            fail(f"path {mode}: {alg} final loss {row['final_loss']}")
+    print(f"  launches per run as the closed form, Q-GADMM bits per round == "
+          f"closed form, Q-GADMM-2b max |theta - theta*| {err:.3e} < {bound:.3e}")
+    print(json.dumps({"paper": {"path": mode, "rounds": r, "rows": [
+        {k: v for k, v in row.items() if k != "sent_per_round"}
+        for row in out["rows"]]}}))
+    return launches
+
+
+def dnn_path():
+    """Path 7: ``launch/paper.py dnn`` at the paper's MLP with every launch
+    count at 0 just before; checks launches, bits and accuracies; prints
+    one JSON line and returns the launch counts."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import paper
+
+    print("path dnn:")
+    kernels.reset_launches()
+    out = paper.run_dnn(paper.parse_args(["dnn", "--rounds",
+                                          str(DNN_ROUNDS)]))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"  launches: {launches}")
+    rows = {row["alg"]: row for row in out["rows"]}
+    q, f = rows["Q-SGADMM"], rows["SGADMM"]
+    if q["launches"] != {K1: 2 * DNN_ROUNDS} or f["launches"] != {}:
+        fail(f"path dnn: launches {q['launches']} / {f['launches']}")
+    for k in kernels.KERNELS:
+        if launches[k] != (2 * DNN_ROUNDS if k == K1 else 0):
+            fail(f"path dnn: {k} launched {launches[k]} times in all")
+    if q["params"] != DNN_D:
+        fail(f"path dnn: the MLP has {q['params']} parameters")
+    want = DNN_N * (DNN_BITS * DNN_D + 64)
+    if q["bits_per_round"] != want or f["bits_per_round"] != DNN_N * 32 * DNN_D:
+        fail(f"path dnn: bits per round {q['bits_per_round']} / "
+             f"{f['bits_per_round']}, expected {want} / {DNN_N * 32 * DNN_D}")
+    if not q["acc"] > f["acc"] - ACC_GAP:
+        fail(f"path dnn: Q-SGADMM accuracy {q['acc']} not within {ACC_GAP} "
+             f"of SGADMM's {f['acc']}")
+    print(f"  launches as the closed form, bits per round == closed form, "
+          f"accuracy {q['acc']:.3f} vs {f['acc']:.3f}")
+    print(json.dumps({"paper": {"path": "dnn", "rounds": DNN_ROUNDS,
+                                "rows": out["rows"]}}))
+    return launches
+
+
+def codec_at_paper_shapes(q_ops) -> float:
+    """K1 at the shapes and widths of paths 5-7, one radius and width per
+    row: Q-GADMM's (50, 6) at 2 and 4 bits, QGD / ADIANA's (50, 6) at 2
+    bits from a zero hat, Q-SGADMM's (10, 109,386) at 8 bits; row 0 has
+    R = 0 (hat == theta, or a zero gradient).  Kernel against plain version
+    bitwise, and the receiver's decode against the sender's hat, as
+    ``check_codec``; returns the largest error.  Then, on the same inputs,
+    the kernel's device time per launch (torch.profiler) and, with CUDA
+    events around 200 back-to-back calls, the wrapper's issue time per call
+    (at these sizes the host issues slower than the card runs), beside the
+    plain version's; not part of the kernels line."""
+    import torch
+
+    from repro_torch.launch.profile import _device_time
+    out, worst = [], 0.0
+    for tag, rows, n, bits, zero_hat in (
+            ("Q-GADMM", LINREG_N, LINREG_D, 2, False),
+            ("Q-GADMM", LINREG_N, LINREG_D, 4, False),
+            ("QGD / ADIANA", LINREG_N, LINREG_D, 2, True),
+            ("Q-SGADMM", DNN_N, DNN_D, DNN_BITS, False)):
+        theta, hat, u, _ = codec_inputs(rows, n, torch.float32, 13 + bits)
+        if zero_hat:
+            hat = torch.zeros_like(theta)
+            theta[0] = 0.0
+        else:
+            hat[0] = theta[0]
+        r = (theta - hat).abs().amax(dim=1)
+        lv = torch.full((rows,), 2.0 ** bits - 1.0, device="cuda")
+        call = lambda: q_ops.quantize_dequantize(theta, hat, u, r, lv)
+        plain = lambda: q_ops.quantize_dequantize_ref(
+            theta, hat, u, r[:, None], lv[:, None])
+        q, h = call()
+        q_ref, h_ref = plain()
+        torch.cuda.synchronize()
+        name = f"{K1} {tag} ({rows}, {n}) {bits} bits"
+        e = max_abs_err([(q, q_ref), (h, h_ref)])
+        worst = max(worst, e)
+        if not (bitwise_equal(q, q_ref) and bitwise_equal(h, h_ref)):
+            fail(f"{name}: kernel != plain (max abs err {e})")
+        if not bitwise_equal(q_ops.decode_ref(hat, q, r[:, None],
+                                              lv[:, None]), h):
+            fail(f"{name}: receiver decode != sender hat")
+        if not bool((h[0] == hat[0]).all()):
+            fail(f"{name}: the R == 0 row moved its hat")
+        issue = time_ms(call, 200)
+        plain_ms = time_ms(plain, 50)
+        kern, _ = _device_time(lambda: [call() for _ in range(200)], 200)
+        dev = sum(k[0] for k in kern if "qdq_kernel" in k[2])
+        bound = (rows * n * 17 + 8 * rows) / HBM_BYTES_PER_S * 1e3
+        out.append({"run": tag, "shape": [rows, n], "bits": bits,
+                    "device_ms": dev, "issue_ms": issue, "plain_ms": plain_ms,
+                    "bound_ms": bound})
+        print(f"  {name}: bitwise equal to plain, decode == hat; "
+              f"{dev:.5f} ms on the card per launch (bound {bound:.6f} ms by "
+              f"bytes, reckoned), {issue:.4f} ms per call issued back to "
+              f"back, plain {plain_ms:.4f} ms")
+    print(json.dumps({"codec_at_paper_shapes": out}))
+    return worst
+
+
+def paper_idle_share():
+    """The device's busy and idle share of paths 5-7 as ``launch/paper.py``
+    runs them, cut to 100 rounds (linreg) and 5 rounds (dnn), set-up and
+    the objective's evaluation included: the device time of one call under
+    torch.profiler against the wall time of one call unprofiled (host
+    clock, synced)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import paper
+    from repro_torch.launch.profile import _device_time
+
+    cases = [("linreg chain (path 5)", paper.run_linreg,
+              ["linreg", "--rounds", "100"]),
+             ("linreg ring, censored (path 6)", paper.run_linreg,
+              ["linreg", "--rounds", "100", "--topology", "ring",
+               "--censor"]),
+             ("dnn (path 7)", paper.run_dnn, ["dnn", "--rounds", "5"])]
+    out = []
+    for name, run, argv in cases:
+        args = paper.parse_args(argv)
+        fn = lambda: run(args)
+        with contextlib.redirect_stdout(io.StringIO()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            kern, _ = _device_time(fn, 1)
+        busy = sum(k[0] for k in kern)
+        launches = sum(k[1] for k in kern)
+        codec = sum(k[0] for k in kern if "qdq_kernel" in k[2])
+        out.append({"run": name, "argv": argv, "wall_ms": wall,
+                    "device_ms": busy, "idle_share": 1 - busy / wall,
+                    "kernel_launches": launches, "codec_ms": codec,
+                    "ms_per_round": {r["alg"]: r.get("ms_per_round",
+                                                     r.get("median_round_ms"))
+                                     for r in res["rows"]}})
+        print(f"  {name}: {wall:.1f} ms wall, {busy:.2f} ms device "
+              f"({launches:.0f} kernels, codec {codec:.3f} ms), idle "
+              f"{100 * (1 - busy / wall):.1f}%")
+    print(json.dumps({"paper_profile": out}))
 
 
 if __name__ == "__main__":

@@ -1,15 +1,20 @@
-"""Carries the JAX package's weights and trainer state into the port.
+"""Carries the JAX package's weights and solver states into the port.
 
-Both take the JAX pytrees as numpy arrays (``jax.tree.map(np.asarray, x)``)
-and import nothing of JAX, so the tests can run the two packages on the
-same numbers; the port's own entry points initialize from a seed instead.
+Every function takes the JAX pytrees as numpy arrays
+(``jax.tree.map(np.asarray, x)``) and imports nothing of JAX, so the tests
+can run the two packages on the same numbers; the port's own entry points
+initialize from a seed instead.  A JAX PRNG key has no torch counterpart:
+the state's rounding generator is seeded with `seed`, and the tests pass
+the JAX draws explicitly.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .core.gadmm import ChainState, GraphState, Quadratic
+from .core.sgadmm import SGADMMState
+from .device import generator, resolve_device
 from .dist.qgadmm import DistState
 from .tree import ParamLayout
 
@@ -55,3 +60,51 @@ def state_from_jax(np_state, device=None, seed: int = 0) -> DistState:
         step=int(np_state.step),
         gen=torch.Generator(device=dev).manual_seed(seed),
         layout=layout)
+
+
+def _t(a, dev, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a)).to(dev)
+    return t if dtype is None else t.to(dtype)
+
+
+def quadratic_from_jax(np_q, device=None) -> Quadratic:
+    """``repro.core.gadmm.Quadratic`` (xtx, xty, minv) -> the port's."""
+    dev = resolve_device(device)
+    return Quadratic(xtx=_t(np_q.xtx, dev), xty=_t(np_q.xty, dev),
+                     minv=_t(np_q.minv, dev))
+
+
+def chain_state_from_jax(np_state, device=None, seed: int = 0) -> ChainState:
+    """``repro.core.gadmm.ChainState`` -> the port's ChainState."""
+    dev = resolve_device(device)
+    return ChainState(
+        theta=_t(np_state.theta, dev), theta_hat=_t(np_state.theta_hat, dev),
+        lam=_t(np_state.lam, dev), radius=_t(np_state.radius, dev),
+        bits=_t(np_state.bits, dev, torch.int32), gen=generator(seed, dev),
+        step=int(np_state.step))
+
+
+def graph_state_from_jax(np_state, device=None, seed: int = 0) -> GraphState:
+    """``repro.core.gadmm.GraphState`` -> the port's GraphState."""
+    dev = resolve_device(device)
+    return GraphState(
+        theta=_t(np_state.theta, dev), theta_hat=_t(np_state.theta_hat, dev),
+        lam=_t(np_state.lam, dev), radius=_t(np_state.radius, dev),
+        bits=_t(np_state.bits, dev, torch.int32),
+        sent=_t(np_state.sent, dev, torch.bool), gen=generator(seed, dev),
+        step=int(np_state.step))
+
+
+def sgadmm_state_from_jax(np_state, device=None,
+                          seed: int = 0) -> SGADMMState:
+    """``repro.core.sgadmm.SGADMMState`` (flat (N, d) rows in the
+    ``ravel_pytree`` order, which is the port's leaf order) -> the port's
+    SGADMMState."""
+    dev = resolve_device(device)
+    return SGADMMState(
+        theta=_t(np_state.theta, dev), theta_hat=_t(np_state.theta_hat, dev),
+        lam=_t(np_state.lam, dev), radius=_t(np_state.radius, dev),
+        bits=_t(np_state.bits, dev, torch.int32),
+        adam_mu=_t(np_state.adam_mu, dev), adam_nu=_t(np_state.adam_nu, dev),
+        adam_t=_t(np_state.adam_t, dev, torch.int32),
+        gen=generator(seed, dev), step=int(np_state.step))

@@ -9,9 +9,13 @@ Worker n quantizes the difference between its model and its previous hat:
     q_i    = stochastic rounding of (theta_i - theta_hat_prev_i + R) / Delta
     theta_hat = theta_hat_prev + Delta * q - R
 
-The arithmetic itself is the codec kernel (``repro_torch.kernels.quantize``).
-Counterpart of ``repro/core/quantizer.py``; its per-tensor reference
-functions (``quantize_tensor``, ``global_radius``, ...) are not ported.
+The arithmetic itself is the codec kernel (``repro_torch.kernels.quantize``,
+K1 for one radius per tensor or row); the receiver decodes with the same
+float32 operations (``decode_ref``), so both ends stay bitwise equal.
+Counterpart of ``repro/core/quantizer.py``.  Trees are nested dicts of
+tensors, taken in the JAX leaf order (``repro_torch.tree``).  The codec
+reads float32 and bfloat16 only: a float64 tensor raises ``TypeError``
+(``require_f32``), never silently rounds.
 
 The float32 rules here reproduce the jitted JAX functions bit for bit, so a
 run makes the same bit-width decisions as the reference: XLA contracts
@@ -27,7 +31,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..kernels.quantize import ops as q_ops
+from ..tree import _set, leaves_with_path, map_leaves
+
 Tensor = torch.Tensor
+
+#: where the float64 codec variant is queued (the JAX benchmarks of the
+#: paper's linear regression run with ``jax_enable_x64``)
+F64_ITEM = "ROADMAP Queue 1 item 11"
 
 # XLA's log2(x): log(x) times the float32 reciprocal of float32(ln 2)
 _INV_LN2 = float(np.float32(1.0) / np.float32(math.log(2.0)))
@@ -172,6 +183,141 @@ def _next_bits(cfg: QuantizerConfig, bits_prev: Tensor, r_new: Tensor,
     needed = torch.ceil(torch.log(x) * _INV_LN2)
     b = torch.clamp(needed.to(torch.int32), 1, cfg.max_bits)
     return torch.where(r_prev > 0, b, base)
+
+
+def require_f32(*tensors: Tensor) -> None:
+    """Raise TypeError unless every tensor is float32 (the states of the
+    chain, graph and SGADMM solvers, and the PS baselines' gradients)."""
+    for t in tensors:
+        if t.dtype == torch.float32:
+            continue
+        if t.dtype == torch.float64:
+            raise TypeError(
+                "float64 state: the codec computes in float32 (as its TPU "
+                f"original does); a float64 codec variant is {F64_ITEM}")
+        raise TypeError(f"expected a float32 state, got {t.dtype}")
+
+
+@dataclasses.dataclass
+class QuantState:
+    """Carried across iterations for one worker's tree: the previously
+    quantized model, R^{k-1} (f32 scalar) and b^{k-1} (int32 scalar)."""
+
+    theta_hat: Any
+    radius: Tensor
+    bits: Tensor
+
+
+def init_state(theta, cfg: QuantizerConfig) -> QuantState:
+    """Quantizer state at k = 0: theta_hat = 0 (the paper starts from
+    theta^0 = 0), on the device of theta's leaves."""
+    dev = leaves_with_path(theta)[0][1].device
+    return QuantState(theta_hat=map_leaves(torch.zeros_like, theta),
+                      radius=torch.zeros((), dtype=torch.float32, device=dev),
+                      bits=torch.tensor(cfg.bits, dtype=torch.int32,
+                                        device=dev))
+
+
+def quantize_tensor(theta: Tensor, theta_hat_prev: Tensor, draw, *,
+                    radius: Tensor, bits: Tensor) -> tuple[Tensor, Tensor]:
+    """Quantize one tensor given a scalar radius and bit width, through the
+    codec (one K1 launch on the card).
+
+    draw: the uniform draw u (f32, theta's shape) or a ``torch.Generator``
+    on theta's device to draw it from.  Returns (q uint8, new hat in
+    theta_hat_prev's dtype); where R == 0, q = 0 and the hat is unchanged."""
+    if isinstance(draw, torch.Generator):
+        draw = torch.rand(theta.shape, generator=draw, device=theta.device)
+    radius = torch.as_tensor(radius, dtype=torch.float32,
+                             device=theta.device).reshape(())
+    levels = levels_of(torch.as_tensor(bits, device=theta.device)).reshape(())
+    if torch.float64 in (theta.dtype, theta_hat_prev.dtype):
+        require_f32(theta, theta_hat_prev)
+    q, hat = q_ops.quantize_dequantize(
+        theta.reshape(-1), theta_hat_prev.reshape(-1), draw.reshape(-1),
+        radius, levels)
+    return q.view(theta.shape), hat.view(theta.shape)
+
+
+def dequantize_tensor(q: Tensor, theta_hat_prev: Tensor, *, radius: Tensor,
+                      bits: Tensor) -> Tensor:
+    """Receiver-side reconstruction (eq. 13): the sender's float32
+    operations, so the result equals its hat bitwise."""
+    radius = torch.as_tensor(radius, dtype=torch.float32,
+                             device=theta_hat_prev.device)
+    levels = levels_of(torch.as_tensor(bits, device=theta_hat_prev.device))
+    return q_ops.decode_ref(theta_hat_prev, q, radius, levels)
+
+
+def global_radius(theta, theta_hat_prev) -> Tensor:
+    """R^k = ||theta - theta_hat_prev||_inf over the whole tree (f32)."""
+    a = leaves_with_path(theta)
+    b = dict(leaves_with_path(theta_hat_prev))
+    dev = a[0][1].device if a else None
+    parts = [torch.amax(torch.abs(x.to(torch.float32)
+                                  - b[p].to(torch.float32)))
+             if x.numel() else torch.zeros((), device=dev)
+             for p, x in a]
+    return (torch.amax(torch.stack(parts)) if parts
+            else torch.zeros((), dtype=torch.float32))
+
+
+def _unflatten(paths, values) -> Any:
+    """Leaves in leaf order -> the tree (a lone tensor stays a tensor)."""
+    if paths == [()]:
+        return values[0]
+    out: dict = {}
+    for path, v in zip(paths, values):
+        _set(out, path, v)
+    return out
+
+
+def quantize(theta, state: QuantState, draws, cfg: QuantizerConfig):
+    """Quantize a tree with one shared radius (paper-faithful).
+
+    draws: a ``torch.Generator`` (one draw per leaf, in leaf order) or a
+    sequence of per-leaf uniform draws.  Returns (payload, new_state) with
+    payload = {'q': tree of uint8, 'radius': f32, 'bits': int32}; its wire
+    size is ``payload_bits(cfg, d)``.  The sender's new hat equals the
+    receiver's ``dequantize`` bitwise."""
+    r_new = global_radius(theta, state.theta_hat)
+    bits = _next_bits(cfg, state.bits, r_new, state.radius)
+    leaves = leaves_with_path(theta)
+    hats = dict(leaves_with_path(state.theta_hat))
+    if not isinstance(draws, torch.Generator):
+        draws = list(draws)
+        if len(draws) != len(leaves):
+            raise ValueError(f"{len(draws)} draws for {len(leaves)} leaves")
+    qs, new_hats = [], []
+    for i, (path, x) in enumerate(leaves):
+        d = draws if isinstance(draws, torch.Generator) else draws[i]
+        q, hat = quantize_tensor(x, hats[path], d, radius=r_new, bits=bits)
+        qs.append(q)
+        new_hats.append(hat)
+    paths = [p for p, _ in leaves]
+    payload = {"q": _unflatten(paths, qs), "radius": r_new, "bits": bits}
+    return payload, QuantState(theta_hat=_unflatten(paths, new_hats),
+                               radius=r_new, bits=bits)
+
+
+def dequantize(payload: dict, theta_hat_prev) -> Any:
+    """Receiver-side reconstruction of the sender's theta_hat^k."""
+    qs = dict(leaves_with_path(payload["q"]))
+    leaves = leaves_with_path(theta_hat_prev)
+    return _unflatten([p for p, _ in leaves], [
+        dequantize_tensor(qs[p], h, radius=payload["radius"],
+                          bits=payload["bits"]) for p, h in leaves])
+
+
+def payload_bits(cfg_or_bits, num_params: int, *, adapt_bits: bool = False,
+                 num_radii: int = 1) -> int:
+    """Wire size in bits of one transmission: b*d + header."""
+    if isinstance(cfg_or_bits, QuantizerConfig):
+        b = cfg_or_bits.bits
+        adapt_bits = cfg_or_bits.adapt_bits
+    else:
+        b = int(cfg_or_bits)
+    return b * num_params + header_bits(adapt_bits, num_radii)
 
 
 def header_bits(adapt_bits: bool = True, num_radii: int = 1) -> int:

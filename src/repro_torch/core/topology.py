@@ -4,11 +4,12 @@ trainer's O(E) state.
 
 The port's own copy of ``repro/core/topology.py`` (numpy only; the port
 imports nothing of ``repro``): ``Topology``, ``_edge_coloring``,
-``_two_color``, ``EdgeIndex``, ``edge_index``, ``edge_schedule`` and the
-chain / ring / star / 2d-torus builders.  ``tests/test_torch_topology.py``
-holds every table against the JAX package's.  Placement, arbitrary edge
-lists and the two-tier (cluster-of-stars, federated) builders are not
-ported yet.
+``_two_color``, ``EdgeIndex``, ``edge_index``, ``edge_schedule``, the
+chain / ring / star / 2d-torus / explicit-edge-list builders, and the
+worker placement of the paper's energy model (``Placement``,
+``random_placement``, ``head_tail_split``).  ``tests/test_torch_topology.py``
+and ``tests/test_torch_gadmm.py`` hold them against the JAX package's.  The
+two-tier (cluster-of-stars, federated) builders are not ported yet.
 """
 from __future__ import annotations
 
@@ -128,6 +129,13 @@ class Topology:
     @property
     def degree(self) -> np.ndarray:
         return (self.port >= 0).sum(axis=1)
+
+    def adjacency(self) -> np.ndarray:
+        a = np.zeros((self.n, self.n), bool)
+        if len(self.edges):
+            a[self.edges[:, 0], self.edges[:, 1]] = True
+            a[self.edges[:, 1], self.edges[:, 0]] = True
+        return a
 
     def matchings(self) -> list[np.ndarray]:
         """Edge color classes, each a (Mc, 2) array of (u, v) with u < v."""
@@ -273,6 +281,12 @@ def torus2d_topology(rows: int, cols: int) -> Topology:
     return _make("torus2d", rows * cols, edges)
 
 
+def bipartite_topology(n: int, edges) -> Topology:
+    """Arbitrary connected bipartite graph from an explicit edge list; the
+    head/tail coloring is recovered by BFS (raises if none exists)."""
+    return _make("bipartite", n, edges)
+
+
 def _torus_dims(n: int) -> tuple[int, int]:
     """Most-square even x even factorization of n (requires n % 4 == 0)."""
     if n % 4:
@@ -309,3 +323,126 @@ def build_topology(kind_or_topo, n: int) -> Topology:
         raise NotImplementedError(
             f"topology {kind!r} is not ported yet (ROADMAP Queue 1 item 1h)")
     raise ValueError(f"unknown topology {kind!r}")
+
+
+# --------------------------------------------------------------- placement --
+# Above this worker count the placement helpers switch from the paper's
+# O(N^2) heuristics (nearest-neighbor chain walk, full pairwise matrix) to
+# O(N) equivalents.
+DENSE_PLACEMENT_MAX = 1024
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Placement:
+    """Workers dropped on a plane, for the paper's energy model (Sec. V-A)."""
+
+    positions: np.ndarray       # (N, 2) worker coordinates in meters
+    chain: np.ndarray           # (N,) permutation: chain order of worker ids
+    ps_index: int               # worker id acting as parameter server
+    chain_hop_dist: np.ndarray  # (N-1,) distance between chain neighbors
+    ps_dist: np.ndarray         # (N,) distance of every worker to the PS
+    topology: Topology | None = None  # None = legacy chain placement
+
+    @property
+    def n(self) -> int:
+        return len(self.positions)
+
+    def resolved_topology(self) -> Topology:
+        if self.topology is not None:
+            return self.topology
+        order = self.chain
+        return _make("chain", self.n,
+                     [(int(order[j]), int(order[j + 1]))
+                      for j in range(self.n - 1)],
+                     prefer_head=int(order[0]) if self.n else None)
+
+    def edge_dists(self) -> np.ndarray:
+        """(E,) meters per undirected topology edge, in ``topo.edges``
+        order."""
+        e = self.resolved_topology().edges
+        if not len(e):
+            return np.zeros((0,))
+        return np.linalg.norm(self.positions[e[:, 0]] - self.positions[e[:, 1]],
+                              axis=1)
+
+    def broadcast_dist(self) -> np.ndarray:
+        """Per-worker transmit distance, in worker-id order: the farthest
+        topology neighbor (one broadcast reaches all of them)."""
+        topo = self.resolved_topology()
+        out = np.zeros(self.n)
+        if topo.num_edges:
+            d = self.edge_dists()
+            np.maximum.at(out, topo.edges[:, 0], d)
+            np.maximum.at(out, topo.edges[:, 1], d)
+        return out
+
+
+def random_placement(n: int, seed: int, grid: float = 250.0,
+                     topology: str = "chain") -> Placement:
+    """Drop n workers uniformly in the grid and connect them.
+
+    'chain' is the paper's nearest-neighbor chain heuristic; 'ring' closes
+    it into a cycle (even n); 'star' uses the min-sum-distance worker as
+    hub (the PS baselines' server); 'torus2d' lays the chain order onto the
+    most-square even torus grid."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, grid, size=(n, 2))
+    if n > DENSE_PLACEMENT_MAX:
+        # chain = id order; PS = the worker nearest the centroid
+        chain = np.arange(n)
+        ps = int(np.argmin(np.linalg.norm(pos - pos.mean(axis=0), axis=1)))
+        ps_dist = np.linalg.norm(pos - pos[ps], axis=1)
+    else:
+        start = int(np.argmin(pos.sum(axis=1)))
+        unvisited = set(range(n)) - {start}
+        chain = [start]
+        while unvisited:
+            last = pos[chain[-1]]
+            nxt = min(unvisited,
+                      key=lambda j: float(np.sum((pos[j] - last) ** 2)))
+            chain.append(nxt)
+            unvisited.remove(nxt)
+        chain = np.asarray(chain)
+        dmat = np.linalg.norm(pos[None, :, :] - pos[:, None, :], axis=-1)
+        ps = int(np.argmin(dmat.sum(axis=1)))
+        ps_dist = dmat[ps]
+    hop = np.linalg.norm(pos[chain[1:]] - pos[chain[:-1]], axis=1)
+
+    if topology == "chain":
+        topo = _make("chain", n, [(int(chain[j]), int(chain[j + 1]))
+                                  for j in range(n - 1)],
+                     prefer_head=int(chain[0]))
+    elif topology == "ring":
+        if n < 2 or n % 2:
+            raise ValueError("ring needs an even worker count (odd cycles "
+                             f"are not bipartite), got {n}")
+        topo = _make("ring", n, [(int(chain[j]), int(chain[(j + 1) % n]))
+                                 for j in range(n)],
+                     prefer_head=int(chain[0]))
+    elif topology == "star":
+        topo = star_topology(n, hub=ps)
+    elif topology == "torus2d":
+        rows, cols = _torus_dims(n)
+        grid_ids = chain.reshape(rows, cols)
+        edges = []
+        for r in range(rows):
+            for c in range(cols):
+                edges.append((int(grid_ids[r, c]),
+                              int(grid_ids[r, (c + 1) % cols])))
+                edges.append((int(grid_ids[r, c]),
+                              int(grid_ids[(r + 1) % rows, c])))
+        topo = _make("torus2d", n, edges)
+    elif topology in ("cluster_of_stars", "federated"):
+        raise NotImplementedError(
+            f"topology {topology!r} is not ported yet (ROADMAP Queue 1 "
+            "item 1h)")
+    else:
+        raise ValueError(f"unknown topology {topology!r}")
+    return Placement(positions=pos, chain=chain, ps_index=ps,
+                     chain_hop_dist=hop, ps_dist=ps_dist, topology=topo)
+
+
+def head_tail_split(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Chain positions 0, 2, 4, ... are heads; 1, 3, 5, ... are tails."""
+    idx = np.arange(n)
+    return idx[idx % 2 == 0], idx[idx % 2 == 1]

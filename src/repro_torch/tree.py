@@ -87,10 +87,12 @@ class ParamLayout:
         return torch.cat(cols, dim=lead)
 
     def views(self, flat: Tensor) -> dict:
-        """Flat (D,) row -> tree of views into it, each leaf its own shape."""
+        """Flat (..., D) buffer -> tree of views into it, each leaf
+        (..., *its shape) with the leading dims kept."""
         out: dict = {}
         off = 0
+        lead = flat.shape[:-1]
         for path, shape, n in zip(self.paths, self.shapes, self.sizes):
-            _set(out, path, flat[off:off + n].view(shape))
+            _set(out, path, flat[..., off:off + n].view(*lead, *shape))
             off += n
         return out

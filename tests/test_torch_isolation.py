@@ -26,7 +26,7 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
              or k == "repro" or k.startswith("repro."))
 assert not bad, bad
-assert len(mods) >= 38, mods
+assert len(mods) >= 43, mods
 print(len(mods))
 """
 
@@ -82,6 +82,14 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.dist.serve import Server
     from repro_torch.launch import serve
     from repro_torch.models import ssm
+
+    from repro_torch.core.gadmm import init_state as chain_init_state
+    from repro_torch.launch import paper
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chain_init_state(4, 6, GADMMConfig())
+    for cmd in ("linreg", "dnn"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            paper.main([cmd, "--rounds", "1"])
 
     mcfg = mamba2_2_7b.smoke_config()
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -118,3 +118,64 @@ def test_layerwise_resolve_matches_jax(kw):
             want = jqz.LayerwiseConfig(**kw).resolve(sizes, base)
             got = tqz.LayerwiseConfig(**kw).resolve(sizes, base)
             assert got == want
+
+
+# ------------------------------------------- the per-tensor tree codec -----
+def _tree(seed):
+    rng = np.random.default_rng(seed)
+    return {"a": rng.normal(size=(5, 7)).astype(np.float32),
+            "b": {"c": rng.normal(size=(11,)).astype(np.float32),
+                  "d": np.zeros((3,), np.float32)}}
+
+
+@pytest.mark.parametrize("adapt", [False, True])
+def test_tree_quantize_matches_jax(adapt):
+    """quantize / dequantize / global_radius / payload_bits on a nested
+    tree, two rounds, against the un-jitted JAX functions with the JAX
+    per-leaf draws (``split(key, L)``): levels, radii, widths and hats
+    bitwise equal; the receiver's hats equal the sender's bitwise."""
+    from repro_torch.convert import params_from_jax
+    jcfg = jqz.QuantizerConfig(bits=3, adapt_bits=adapt)
+    tcfg = tqz.QuantizerConfig(bits=3, adapt_bits=adapt)
+    theta0 = jax.tree.map(jnp.asarray, _tree(0))
+    jst = jqz.init_state(theta0, jcfg)
+    tst = tqz.init_state(params_from_jax(_tree(0), "cpu"), tcfg)
+    for k, seed in enumerate((0, 1)):
+        theta = jax.tree.map(jnp.asarray, _tree(seed))
+        key = jax.random.PRNGKey(k)
+        keys = jax.random.split(key, len(jax.tree.leaves(theta)))
+        u = [torch.from_numpy(np.array(jax.random.uniform(kk, x.shape)))
+             for kk, x in zip(keys, jax.tree.leaves(theta))]
+        with jax.disable_jit():
+            jpay, jst_new = jqz.quantize(theta, jst, key, jcfg)
+            jrx = jqz.dequantize(jpay, jst.theta_hat)
+        tpay, tst_new = tqz.quantize(params_from_jax(_tree(seed), "cpu"), tst,
+                                     u, tcfg)
+        trx = tqz.dequantize(tpay, tst.theta_hat)
+        assert float(tpay["radius"]) == float(jpay["radius"])
+        assert int(tpay["bits"]) == int(jpay["bits"])
+        for path in (("a",), ("b", "c"), ("b", "d")):
+            get = lambda t: t[path[0]] if len(path) == 1 else t[path[0]][path[1]]
+            np.testing.assert_array_equal(get(tpay["q"]).numpy(),
+                                          np.asarray(get(jpay["q"])))
+            np.testing.assert_array_equal(get(tst_new.theta_hat).numpy(),
+                                          np.asarray(get(jst_new.theta_hat)))
+            np.testing.assert_array_equal(get(trx).numpy(), np.asarray(get(jrx)))
+            assert torch.equal(get(trx), get(tst_new.theta_hat))
+        jst, tst = jst_new, tst_new
+    assert tqz.payload_bits(tcfg, 49) == jqz.payload_bits(jcfg, 49)
+    assert tqz.payload_bits(4, 10, num_radii=3) == \
+        jqz.payload_bits(4, 10, num_radii=3)
+
+
+def test_quantize_tensor_zero_radius_and_generator():
+    """R == 0: levels 0 and the hat unchanged; a generator draws u on the
+    tensor's device; float64 raises naming the ROADMAP item."""
+    theta = torch.randn(3, 4)
+    q, hat = tqz.quantize_tensor(theta, theta.clone(), torch.Generator(),
+                                 radius=torch.tensor(0.0),
+                                 bits=torch.tensor(4))
+    assert not q.any() and torch.equal(hat, theta)
+    with pytest.raises(TypeError, match="item 11"):
+        tqz.quantize_tensor(theta.double(), theta.double(), torch.Generator(),
+                            radius=torch.tensor(1.0), bits=torch.tensor(4))
