@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero before the result line:
      and 4 bits, 50 x 6 at 2 bits from a zero hat, 10 x 109,386 at 8 bits,
      each with an R = 0 row; timed there too): levels, hats and packed
      bytes must be bitwise equal, and the receiver's decode equal to the
-     sender's hat;
+     sender's hat; and ``pack_mixed`` / ``unpack_mixed`` (pack4 / unpack4
+     once per <= 4-bit segment) bitwise against their plain versions on
+     the framings of tests/test_kernels.py and on whisper-tiny's 25 leaves
+     at 2, 4 and 8 bits;
   2b. hold the SSD kernel (K6) against its plain version at the serving
      shape (BC 16, Q 256, H 80, P 64, N 128), at ragged shapes (Q 8, 32,
      200; H 5, 80; N = P = 16), at the longest chunk (Q 768), at uneven
@@ -23,10 +26,15 @@ Phases, in order; any failure exits non-zero before the result line:
      (3xTF32 products on the tensor cores, sums in another order); and one
      two-group ``ssd_scan`` on the card against the CPU's;
   3. check the trainer against the same trainer on the CPU (plain versions)
-     on a small input (whisper-tiny-smoke, 2 steps, shared draws), in each
-     quantizer mode: global 4-bit, per_tensor, layerwise with per-leaf
-     periods and thresholds, layerwise with a bit budget, and censoring
-     (with a tau that censors the tails in step 2);
+     on a small input (whisper-tiny-smoke, 2 steps, 3 under staleness,
+     shared draws and participation masks), in each quantizer mode and
+     option: global 4-bit, per_tensor, layerwise with per-leaf periods and
+     thresholds, layerwise with a bit budget, censoring (with a tau that
+     censors the tails in step 2), jacobi, overlap, staleness 1 with
+     censoring, staleness 2 with layerwise, participation 0.5 (ring; ring
+     with staleness 1; chain with censoring), quantize=False, microbatches
+     2, a bf16 state, cluster_of_stars and federated: widths, sent masks,
+     skip rates and wire bits exact;
   3b. serve mamba2-smoke on the card against the same server on the CPU
      (B = 2, prompt 20: three chunks of 8, the last padded; then 4
      teacher-forced decode steps): logits and caches to rtol 1e-4 / atol
@@ -37,9 +45,12 @@ Phases, in order; any failure exits non-zero before the result line:
      masks equal, theta, hats and radii to atol 1e-5, duals to the sum
      over the steps of 2 alpha rho max |hat difference| + 1e-6 max |lam|;
      SGADMM theta within 1e-4 at all but 1e-3 of the positions; two codec
-     launches per quantized step;
-  4. drive the three trainer paths at full whisper-tiny (W = 4 workers on a
-     chain, 5 steps), each with every launch count at 0 just before:
+     launches per quantized step; then 40 rounds of Q-SGADMM and SGADMM on
+     that MLP on the card, where the tests tell them apart: Q-SGADMM's
+     accuracy > 0.8 and within 0.08 of SGADMM's at under 1/3.5 of its bits;
+  4. drive the six trainer paths at full whisper-tiny (W = 4 workers, 5
+     steps, a chain unless named), each with every launch count at 0 just
+     before:
        path 1, the CLI at 4 bits, global radius, packed wire: the codec
          (K1), pack4 and unpack4 launched twice per step;
        path 2, the trainer API with radius_mode='per_tensor' and eq. 11
@@ -48,9 +59,20 @@ Phases, in order; any failure exits non-zero before the result line:
        path 3, the CLI with --layerwise --bit-budget (4 bits per parameter)
          --censor: the per-element radius-and-levels codec (K3) twice per
          step, unpacked wire (widths 1 to 8);
+       path 8, the CLI with --topology ring --staleness 2 --participation
+         0.75: K1 twice per step, pack4 once per step (send into the ring),
+         unpack4 once per step but the 2 fill rounds (recv-done); some
+         worker absent (seed 0: worker 1 in step 4, worker 3 in step 5);
+         hat_edge bitwise hat_lag[src];
+       path 9, the trainer API with overlap=True and microbatches=2: K1,
+         pack4 and unpack4 twice per step;
+       path 10, the CLI with --mode jacobi --no-quantize: no kernel, wire
+         bits 1 x 2E x 8 x 4D per step, a falling loss;
      each requires finite metrics, sender == receiver bit-sync on every
      edge, bits_mean in range, the wire bits of every step equal to the
-     closed form of its billing branch, and prints one JSON line;
+     closed form of its billing branch, the live invariants of
+     ``repro_torch.obs.checks`` (wire accounting, dual mirrors; the CLI
+     runs them too, REPRO_CHECK=1), and prints one JSON line;
      then path 4, serve: full mamba2-2.7b (2,831,296,000 float32 parameters,
      random from seed 0) through ``launch/serve.py``'s ``run``, B = 4, two
      request batches (prompt 1024, then 1000), each followed by 32 greedy
@@ -81,10 +103,11 @@ Phases, in order; any failure exits non-zero before the result line:
   5. time each kernel (CUDA events) beside its plain version and its bound
      (K6's for its route: bytes against 3 x its operations at the TF32
      rate, printed beside its old float32 CUDA-core bound), and print one
-     JSON line listing them with their launches summed over the seven
+     JSON line listing them with their launches summed over the ten
      paths, and the device's busy and idle share of paths 5-7, each a
-     ``launch/paper.py`` call cut to 100 (linreg) or 5 (dnn) rounds
-     (``torch.profiler``).
+     ``launch/paper.py`` call cut to 100 (linreg) or 5 (dnn) rounds, and
+     of paths 8-10 (3 steps after 2 warm-up, ``launch/profile.py``), with
+     their peak memory (``torch.profiler``).
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card; it
 imports nothing of JAX and nothing of the JAX package.
 """
@@ -101,8 +124,6 @@ TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
 SSD_PASSES = 3              # K6's 3xTF32: three TF32 products per product
 W, STEPS, BITS = 4, 5, 4
 CHAIN_SRC = [1, 0, 2, 1, 3, 2]   # source worker of each directed chain edge
-DEGREE = [CHAIN_SRC.count(i) for i in range(W)]
-EDGES = len(CHAIN_SRC) // 2
 FLAG_BITS = 1                    # censor flag per directed edge (and leaf)
 # whisper-tiny's 4 bits per parameter: the budget controller mixes 1..8 bits
 BIT_BUDGET = 4 * 56_355_840
@@ -127,6 +148,11 @@ LINREG_N, LINREG_D, LINREG_ROUNDS = 50, 6, 400
 DNN_N, DNN_D, DNN_BITS, DNN_ROUNDS = 10, 109_386, 8, 40
 THETA_TOL = 3e-2        # tests/test_gadmm.py: max |theta - theta*| / scale
 ACC_GAP = 0.08          # tests/test_sgadmm.py: Q-SGADMM vs SGADMM accuracy
+SMALL_ACC, SMALL_BITS_RATIO = 0.8, 3.5   # ... and its accuracy and bits bounds
+# mixed-width framings of tests/test_kernels.py::test_pack_mixed_roundtrip
+MIXED_SEGS = [((256,), (4,)), ((100, 200), (2, 8)),
+              ((7, 0, 300, 65), (8, 4, 3, 5)), ((0, 0), (1, 8)),
+              ((1000, 1, 129), (4, 1, 6))]
 K1 = "quantize_dequantize"
 CODECS = (("row", "quantize_dequantize"),
           ("vec_r", "quantize_dequantize_vec_r"),
@@ -302,6 +328,7 @@ def main() -> int:
         if not (bitwise_equal(u, pack_ops.unpack4_ref(p, n))
                 and bitwise_equal(u, qs)):
             fail(f"unpack4 at {rows} rows of n={n} != plain")
+    check_pack_mixed(pack_ops, whisper_tiny)
     err["pack4"] = max_abs_err([(pk, pk_ref)])
     err["unpack4"] = max_abs_err([(un, un_ref)])
     print(f"  pack4 {tuple(q_path.shape)} / unpack4 {tuple(recv.shape)}, "
@@ -338,6 +365,24 @@ def main() -> int:
             cli + ["--layerwise", "--bit-budget", str(BIT_BUDGET),
                    "--censor"])),
         {"quantize_dequantize_vec_rl": 2 * STEPS}, (1, 8), d))
+    # path 8: seed 0's participation draws (host generator, seed + 2) leave
+    # worker 1 out of step 4 and worker 3 out of step 5
+    path_launches.append(run_path(
+        "ring_stale2_part075",
+        lambda: train.run(train.parse_args(
+            cli + ["--topology", "ring", "--staleness", "2",
+                   "--participation", "0.75"])),
+        {"quantize_dequantize": 2 * STEPS, "pack4": STEPS,
+         "unpack4": STEPS - 2}, (BITS, BITS), d, check=some_absent))
+    path_launches.append(run_path(
+        "overlap_microbatches2", lambda: api_run(overlap=True, microbatches=2),
+        {"quantize_dequantize": 2 * STEPS, "pack4": 2 * STEPS,
+         "unpack4": 2 * STEPS}, (BITS, BITS), d))
+    path_launches.append(run_path(
+        "jacobi_full_precision",
+        lambda: train.run(train.parse_args(
+            cli + ["--mode", "jacobi", "--no-quantize"])),
+        {}, (BITS, BITS), d, check=loss_falls))
     path_launches.append(serve_path())
     lin = ["linreg", "--rounds", str(LINREG_ROUNDS)]
     path_launches.append(linreg_path("linreg_chain", lin))
@@ -406,8 +451,9 @@ def main() -> int:
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, reckoned), "
-              f"{r['launches']} launches on the seven paths")
+              f"{r['launches']} launches on the ten paths")
     paper_idle_share()
+    trainer_profiles()
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -606,10 +652,16 @@ def serve_path():
 
 def per_tensor_run():
     """Path 2 through the trainer API (the CLI has no radius-mode flag):
-    full whisper-tiny with the CLI's data, per_tensor radius and eq. 11
-    capped at 4 bits.  Returns (trainer, state, log) like ``train.run``."""
-    import torch
+    per_tensor radius and eq. 11 capped at 4 bits."""
+    from repro_torch.core.quantizer import QuantizerConfig
+    return api_run(radius_mode="per_tensor", qcfg=QuantizerConfig(
+        bits=BITS, adapt_bits=True, max_bits=BITS))
 
+
+def api_setup(qcfg=None, **kw):
+    """(trainer, state, batches) of full whisper-tiny through the trainer
+    API, with the CLI's data (per-worker batch 4, seq 128) and DistConfig
+    options `kw`; `qcfg` defaults to BITS fixed."""
     from repro_torch.configs import whisper_tiny
     from repro_torch.core.gadmm import GADMMConfig
     from repro_torch.core.quantizer import QuantizerConfig
@@ -618,17 +670,30 @@ def per_tensor_run():
     from repro_torch.models import encdec
 
     cfg = whisper_tiny.config()
-    dcfg = DistConfig(num_workers=W, radius_mode="per_tensor", gadmm=GADMMConfig(
-        rho=1.0, alpha=0.01, qcfg=QuantizerConfig(bits=BITS, adapt_bits=True,
-                                                  max_bits=BITS)))
+    dcfg = DistConfig(num_workers=W, gadmm=GADMMConfig(
+        rho=1.0, alpha=0.01, qcfg=qcfg or QuantizerConfig(bits=BITS)), **kw)
     trainer = QGADMMTrainer(encdec, cfg, dcfg)
     state = init_state(lambda g: encdec.init(g, cfg), 0, dcfg)
     loader = LMShardLoader(W, 4, 128, cfg.vocab)
     frames = ExtraInputs.frames(W, 4, cfg.encoder_frames, cfg.d_model)
+
+    def batches():
+        while True:
+            yield dict(loader.next_batch(), frames=frames)
+
+    return trainer, state, batches()
+
+
+def api_run(**kw):
+    """STEPS steps of ``api_setup(**kw)``, printing the step line; returns
+    (trainer, state, log) like ``train.run``."""
+    import torch
+
+    trainer, state, batches = api_setup(**kw)
     log = []
     for k in range(STEPS):
         t0 = time.time()
-        state, m = trainer.step(state, dict(loader.next_batch(), frames=frames))
+        state, m = trainer.step(state, next(batches))
         m = {n: float(v) if v.dim() == 0 else v.tolist()
              for n, v in m.items()}                        # syncs the device
         torch.cuda.synchronize()
@@ -640,43 +705,76 @@ def per_tensor_run():
     return trainer, state, log
 
 
+def some_absent(trainer, state, log):
+    """Path 8: some worker sat out some round, and hat_edge is bitwise
+    the S-round lag of its source's hat."""
+    present = [m["participants"] for _, m, _ in log]
+    if not min(present) < W:
+        fail(f"path 8: every worker took part in every step ({present})")
+    if state.hat_lag is None or len(state.inbox) != 2:
+        fail("path 8: no staleness ring")
+    print(f"  participants per step {present}; hat_edge == hat_lag[src]")
+
+
+def loss_falls(trainer, state, log):
+    """Path 10: the loss falls over the run."""
+    first, last = log[0][1]["loss"], log[-1][1]["loss"]
+    if not last < first:
+        fail(f"path 10: loss {first} -> {last} does not fall")
+    print(f"  loss falls {first:.4f} -> {last:.4f}")
+
+
 def packed_len(n: int) -> int:
     """pack4's wire length: 128 bytes per 256 levels."""
     return 128 * -(-n // 256)
 
 
 def closed_form_wire_bits(trainer, state, m) -> float:
-    """The wire bits of one step from its committed masks: every phase and
-    direction of every chain edge carries a row plus its header; censored,
-    a flag per directed edge plus the payload of each sender on each of its
+    """The wire bits of one step from its committed masks and the graph's
+    degrees: every phase (one in jacobi) and direction of every edge
+    carries a row (4 bytes a parameter unquantized) plus its header (none
+    unquantized); censored or with partial participation, a flag per
+    directed edge and phase plus the payload of each sender on each of its
     edges; layerwise, a flag per leaf slot and directed edge plus, per sent
     leaf, its nibble-packed (<= 4 bits) or byte-wide segment and header."""
     dcfg = trainer.dcfg
+    deg, edges = trainer.topo.degree, trainer.topo.num_edges
+    phases = 1 if dcfg.mode == "jacobi" else 2
     sizes = state.layout.sizes
     if dcfg.layerwise is not None:
-        total = 2 * 2 * EDGES * len(sizes) * FLAG_BITS
+        total = phases * 2 * edges * len(sizes) * FLAG_BITS
         for w, row in enumerate(m["leaf_bits_sent"]):
             for b, n in zip(row, sizes):
                 if b > 0:
                     nbytes = packed_len(n) if b <= 4 else n
-                    total += DEGREE[w] * (8 * nbytes + 64)
+                    total += deg[w] * (8 * nbytes + 64)
         return float(total)
     d = state.layout.size
     n_r = len(sizes) if dcfg.radius_mode == "per_tensor" else 1
-    per_link = 8 * (packed_len(d) if dcfg.pack_wire else d) + 32 * n_r + 32
-    if dcfg.censor is None:
-        return float(2 * 2 * EDGES * per_link)
-    return float(2 * 2 * EDGES * FLAG_BITS + per_link * sum(
-        s * g for s, g in zip(m["worker_sent"], DEGREE)))
+    if not dcfg.gadmm.quantize:
+        per_link = 8 * 4 * d
+    else:
+        per_link = (8 * (packed_len(d) if dcfg.pack_wire else d)
+                    + 32 * n_r + 32)
+    if dcfg.censor is None and dcfg.participation == 1.0:
+        return float(phases * 2 * edges * per_link)
+    return float(phases * 2 * edges * FLAG_BITS + per_link * sum(
+        s * g for s, g in zip(m["worker_sent"], deg)))
 
 
-def run_path(mode, run, want, bits_range, d):
+def run_path(mode, run, want, bits_range, d, check=None):
     """Drive one trainer path with every launch count at 0 just before;
-    check its launches, metrics, bit-sync and wire bits; print its JSON
-    line and return its launch counts."""
+    check its launches, metrics, bit-sync, wire bits and the live
+    invariants of ``obs.checks`` (also run by the CLI itself: REPRO_CHECK
+    is set), then `check`(trainer, state, log); print its JSON line and
+    return its launch counts."""
+    import os
+
     import torch
 
     from repro_torch import kernels
+    from repro_torch.obs import checks
+    os.environ[checks.ENV_FLAG] = "1"
     print(f"path {mode}:")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -705,14 +803,21 @@ def run_path(mode, run, want, bits_range, d):
             fail(f"path {mode} step {step}: wire bits "
                  f"{m['wire_bits_per_round']} != closed form {want_bits}")
     if not trainer.bit_sync(state):
-        fail(f"path {mode}: hat_edge is not bitwise the sender's theta_hat")
+        fail(f"path {mode}: hat_edge is not bitwise the sender's hat")
+    checks.check_step_window(trainer, state, [
+        {"step": step - 1, "metrics": m} for step, m, _ in log])
+    checks.check_edge_mirrors(trainer, state)
+    if check is not None:
+        check(trainer, state, log)
     print(f"  metrics finite, bits_mean in [{lo}, {hi}], wire bits == closed "
-          "form; hat_edge bitwise == theta_hat[src] on all "
-          f"{trainer.eidx.num_directed} directed edges")
+          "form; hat_edge bitwise == the sender's hat on all "
+          f"{trainer.eidx.num_directed} directed edges; obs.checks wire "
+          "accounting + edge mirrors OK")
     step_s = sorted(s for _, _, s in log[1:])
     print(json.dumps({"trainer": {
         "arch": "whisper-tiny", "mode": mode, "workers": W, "steps": STEPS,
-        "params_per_worker": d, "pack_wire": trainer.dcfg.pack_wire,
+        "topology": trainer.topo.kind, "params_per_worker": d,
+        "pack_wire": trainer.dcfg.pack_wire, "launches": launches,
         "first_step_s": log[0][2], "median_step_s": step_s[len(step_s) // 2],
         "max_memory_allocated_bytes": peak,
         "skip_rate": [m["skip_rate"] for _, m, _ in log],
@@ -725,36 +830,61 @@ def run_path(mode, run, want, bits_range, d):
 
 
 def check_small_trainers():
-    """whisper-tiny-smoke, 2 steps, on the card (kernels) and on the CPU
-    (plain versions) from the same init, batches and draws, in every
-    quantizer mode: metrics rtol 1e-3, and theta within 1e-4 at all but
-    1e-3 of the positions (matmul sums differ between the two devices;
-    Adam's first steps amplify a tiny difference where the gradient is
-    ~0); both sides bit-synced.  The censoring case must censor some
-    worker but not all in one of its steps."""
+    """whisper-tiny-smoke on the card (kernels) and on the CPU (plain
+    versions) from the same init, batches, draws and participation masks,
+    2 steps (3 under staleness, so the ring delivers), in every quantizer
+    mode and every option: metrics rtol 1e-3; widths, sent masks, skip rate
+    and wire bits exact; theta within 1e-4 (one ulp of the leaf dtype in a
+    bf16 leaf) at all but 1e-3 of the positions (matmul sums differ between
+    the two devices; Adam's first steps amplify a tiny difference where
+    the gradient is ~0); both sides bit-synced.  The censoring cases must
+    censor some worker but not all in one of their steps, the
+    participation cases leave some worker out."""
+    import torch
+
     from repro_torch.core.censor import CensorConfig
+    from repro_torch.core.gadmm import GADMMConfig
     from repro_torch.core.quantizer import LayerwiseConfig
     n_leaves = 25
+    tables = LayerwiseConfig(
+        bits=tuple(2 if i % 2 else 4 for i in range(n_leaves)),
+        periods=tuple(2 if i % 3 == 2 else 1 for i in range(n_leaves)),
+        taus=1.0, tau_xi=0.9)
+    censor = CensorConfig(tau=SMALL_TAU, xi=0.9)
     modes = {
         "global": {},
         "per_tensor": {"radius_mode": "per_tensor"},
-        "layerwise_periods_taus": {"layerwise": LayerwiseConfig(
-            bits=tuple(2 if i % 2 else 4 for i in range(n_leaves)),
-            periods=tuple(2 if i % 3 == 2 else 1 for i in range(n_leaves)),
-            taus=1.0, tau_xi=0.9)},
+        "layerwise_periods_taus": {"layerwise": tables},
         "layerwise_budget": {"layerwise": LayerwiseConfig(
             budget_bits=4 * 182_400)},
-        "censor": {"censor": CensorConfig(tau=SMALL_TAU, xi=0.9)},
+        "censor": {"censor": censor},
+        "jacobi": {"mode": "jacobi"},
+        "overlap": {"overlap": True},
+        "staleness1_censor": {"staleness": 1, "censor": censor},
+        "staleness2_layerwise": {"staleness": 2, "layerwise": tables},
+        "participation_ring": {"participation": 0.5, "topology": "ring"},
+        "participation_ring_staleness1": {"participation": 0.5,
+                                          "staleness": 1, "topology": "ring"},
+        "participation_censor": {"participation": 0.5, "censor": censor},
+        "full_precision": {"gadmm": GADMMConfig(rho=1.0, quantize=False,
+                                                alpha=0.01)},
+        "microbatches2": {"microbatches": 2},
+        "bf16_state": {"state_dtype": torch.bfloat16},
+        "cluster_of_stars": {"topology": "cluster_of_stars"},
+        "federated": {"topology": "federated"},
     }
     for mode, kw in modes.items():
-        skips = check_small_trainer(mode, kw)
+        skips, present = check_small_trainer(mode, kw)
         if mode == "censor" and not any(0.0 < s < 1.0 for s in skips):
             fail(f"small trainer censor: skip rates {skips} censor no worker "
                  "or all of them")
+        if "participation" in mode and not min(present) < W:
+            fail(f"small trainer {mode}: every worker took part ({present})")
 
 
 def check_small_trainer(mode, kw):
-    """One mode of check_small_trainers; returns the per-step skip rates."""
+    """One mode of check_small_trainers; returns the per-step skip rates
+    and participant counts."""
     import numpy as np
     import torch
 
@@ -766,8 +896,10 @@ def check_small_trainer(mode, kw):
     from repro_torch.models import encdec
 
     cfg = whisper_tiny.smoke_config()
-    dcfg = DistConfig(num_workers=W, gadmm=GADMMConfig(
-        rho=1.0, qcfg=QuantizerConfig(bits=BITS), alpha=0.01), **kw)
+    kw = dict(kw)
+    gcfg = kw.pop("gadmm", GADMMConfig(
+        rho=1.0, qcfg=QuantizerConfig(bits=BITS), alpha=0.01))
+    dcfg = DistConfig(num_workers=W, gadmm=gcfg, **kw)
     sides = {}
     for dev in ("cpu", "cuda"):
         tr = QGADMMTrainer(encdec, cfg, dcfg, device=dev)
@@ -775,34 +907,90 @@ def check_small_trainer(mode, kw):
         sides[dev] = (tr, st)
     st_cpu = sides["cpu"][1]
     sides["cuda"][1].theta.copy_(st_cpu.theta)     # same init on both
+    lay = st_cpu.layout
+    tol = torch.full((lay.size,), 1e-4)
+    for off, n, dt in lay.narrow:                  # one ulp of a bf16 leaf
+        mag = st_cpu.theta[:, off:off + n].abs().amax(0).clamp(min=1e-30)
+        tol[off:off + n] = torch.maximum(
+            torch.tensor(1e-4), torch.exp2(torch.floor(torch.log2(mag)) - 7))
     loader = LMShardLoader(W, 2, 16, cfg.vocab)
     frames = ExtraInputs.frames(W, 2, cfg.encoder_frames, cfg.d_model)
     rng = np.random.default_rng(0)
-    skips = []
-    for k in range(2):
+    skips, present = [], []
+    for k in range(3 if dcfg.staleness else 2):
         batch = dict(loader.next_batch(), frames=frames)
         u = [rng.random((W, st_cpu.layout.size), dtype=np.float32)
              for _ in range(2)]
-        out = {dev: tr.step(st, batch, u=u)[1] for dev, (tr, st)
-               in sides.items()}
-        for name in ("loss", "consensus_resid", "radius_mean", "bits_mean",
-                     "skip_rate", "wire_bits_per_round"):
+        part = (rng.random(W) < dcfg.participation
+                if dcfg.participation < 1.0 else None)
+        out = {dev: tr.step(st, batch, u=u, part=part)[1]
+               for dev, (tr, st) in sides.items()}
+        for name in ("loss", "consensus_resid", "radius_mean"):
             a, b = float(out["cpu"][name]), float(out["cuda"][name])
             if not abs(a - b) <= 1e-3 * abs(a):
                 fail(f"small trainer {mode} step {k}: {name} cuda {b} vs "
                      f"cpu {a}")
+        for name in ("bits_mean", "skip_rate", "wire_bits_per_round",
+                     "worker_sent"):
+            a, b = out["cpu"][name], out["cuda"][name].cpu()
+            if not torch.equal(a, b):
+                fail(f"small trainer {mode} step {k}: {name} cuda {b} vs "
+                     f"cpu {a}")
+        if not torch.equal(sides["cuda"][1].bits.cpu(), st_cpu.bits):
+            fail(f"small trainer {mode} step {k}: widths differ")
         skips.append(float(out["cuda"]["skip_rate"]))
+        present.append(float(out["cuda"]["participants"]))
         th = (sides["cuda"][1].theta.cpu() - sides["cpu"][1].theta).abs()
-        frac = float((th > 1e-4).float().mean())
+        frac = float((th > tol).float().mean())
         if frac > 1e-3:
             fail(f"small trainer {mode} step {k}: theta differs at "
                  f"{frac:.2e}")
         for dev, (tr, st) in sides.items():
             if not tr.bit_sync(st):
                 fail(f"small trainer {mode} on {dev}: sender/receiver desync")
-    print(f"  small trainer {mode} (whisper-tiny-smoke, 2 steps): card == CPU "
-          f"within tolerance, bit-synced on both; skip rates {skips}")
-    return skips
+    print(f"  small trainer {mode} (whisper-tiny-smoke, {k + 1} steps): card "
+          f"== CPU within tolerance, bit-synced on both; skip rates {skips}, "
+          f"participants {present}")
+    return skips, present
+
+
+def check_pack_mixed(pack_ops, whisper_tiny):
+    """Phase 2: pack_mixed / unpack_mixed on the card (pack4 / unpack4 per
+    <= 4-bit segment) bitwise against their plain versions, on the
+    framings of tests/test_kernels.py and on whisper-tiny's 25 leaves at
+    2, 4 and 8 bits in turn."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models import encdec
+    from repro_torch.tree import ParamLayout
+    sizes = ParamLayout.of(encdec.init(torch.Generator(device="cuda"),
+                                       whisper_tiny.config())).sizes
+    cases = MIXED_SEGS + [(sizes, tuple((2, 4, 8)[i % 3]
+                                        for i in range(len(sizes))))]
+    rng = np.random.default_rng(8)
+    for seg_sizes, bits in cases:
+        q = torch.from_numpy(np.concatenate(
+            [rng.integers(0, 2 ** b, n, dtype=np.uint8)
+             for n, b in zip(seg_sizes, bits)] + [np.zeros(0, np.uint8)]))
+        before = dict(kernels.LAUNCHES)
+        pk = pack_ops.pack_mixed(q.cuda(), seg_sizes, bits)
+        un = pack_ops.unpack_mixed(pk, seg_sizes, bits)
+        torch.cuda.synchronize()
+        segs = sum(1 for n, b in zip(seg_sizes, bits) if n and b <= 4)
+        got = [kernels.LAUNCHES[k] - before[k] for k in ("pack4", "unpack4")]
+        if got != [segs, segs]:
+            fail(f"pack_mixed {len(seg_sizes)} segments: pack4 / unpack4 "
+                 f"launched {got}, expected {segs} each")
+        if not (bitwise_equal(pk.cpu(), pack_ops.pack_mixed_ref(
+                q, seg_sizes, bits)) and bitwise_equal(un.cpu(), q)
+                and pk.numel() == pack_ops.mixed_packed_len(seg_sizes, bits)):
+            fail(f"pack_mixed over {len(seg_sizes)} segments at {bits} bits "
+                 "!= plain, or the round trip lost levels")
+    print(f"  pack_mixed / unpack_mixed: {len(cases)} framings "
+          f"(whisper-tiny's {len(sizes)} leaves at 2/4/8 bits among them) "
+          "byte-identical to plain, round trip exact")
 
 
 def _step_launches(fn, want: int, tag: str):
@@ -936,6 +1124,48 @@ def check_small_paper():
     print(f"  small Q-SGADMM (MLP 32-24-10, N 6, 2 rounds): card == CPU "
           f"within tolerance (theta beyond 1e-4 at {frac:.2e}), K1 twice "
           "per round")
+    check_small_sgadmm_outcome(layers, cx, cy, p0, scfg)
+
+
+def check_small_sgadmm_outcome(layers, cx, cy, p0, scfg):
+    """40 rounds of Q-SGADMM and SGADMM on the card at the size where the
+    tests tell them apart (MLP 32-24-10, N 6, batches of 64 from
+    default_rng(0)): the bounds of tests/test_torch_sgadmm.py's
+    test_40_rounds_reach_the_jax_tests_bounds — Q-SGADMM's consensus
+    accuracy > 0.8 and within 0.08 of SGADMM's, at under 1 / 3.5 of its
+    bits per round."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.sgadmm import SGADMMTrainer
+    from repro_torch.models import mlp
+    x_all = torch.from_numpy(cx.reshape(-1, cx.shape[-1])).cuda()
+    y_all = torch.from_numpy(cy.reshape(-1)).cuda()
+    acc, bits = {}, {}
+    for quantize in (True, False):
+        cfg = dataclasses.replace(scfg, gadmm=dataclasses.replace(
+            scfg.gadmm, quantize=quantize))
+        tr = SGADMMTrainer(mlp.loss_fn, {k: v.cuda() for k, v in p0.items()},
+                           6, cfg, device="cuda")
+        rng = np.random.default_rng(0)
+        for _ in range(DNN_ROUNDS):
+            sel = rng.integers(0, cx.shape[1], size=(6, 64))
+            tr.train_step(
+                torch.from_numpy(np.take_along_axis(cx, sel[:, :, None],
+                                                    1)).cuda(),
+                torch.from_numpy(np.take_along_axis(cy, sel, 1)).cuda())
+        acc[quantize] = float(mlp.accuracy(tr.mean_params(), x_all, y_all))
+        bits[quantize] = tr.bits_per_round()
+    if not (acc[True] > SMALL_ACC and acc[True] > acc[False] - ACC_GAP
+            and bits[True] < bits[False] / SMALL_BITS_RATIO):
+        fail(f"small Q-SGADMM 40 rounds: accuracy {acc[True]} vs SGADMM "
+             f"{acc[False]}, bits {bits[True]} vs {bits[False]}")
+    print(f"  small Q-SGADMM vs SGADMM ({layers}, N 6, {DNN_ROUNDS} rounds): "
+          f"accuracy {acc[True]:.3f} vs {acc[False]:.3f} (> {SMALL_ACC}, "
+          f"within {ACC_GAP}), bits per round {bits[True]} vs {bits[False]} "
+          f"(under 1/{SMALL_BITS_RATIO})")
 
 
 def linreg_path(mode, argv):
@@ -1138,6 +1368,42 @@ def paper_idle_share():
               f"({launches:.0f} kernels, codec {codec:.3f} ms), idle "
               f"{100 * (1 - busy / wall):.1f}%")
     print(json.dumps({"paper_profile": out}))
+
+
+def trainer_profiles():
+    """Step time, peak memory and the device's busy and idle share of
+    trainer paths 8-10 (``launch/profile.py``'s ``profile_trainer``: 2
+    warm-up steps, 3 timed, 3 under torch.profiler)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import profile, train
+    cli = ["--arch", "whisper-tiny", "--workers", str(W), "--bits", str(BITS)]
+    cases = [
+        ("path 8 ring, staleness 2, participation 0.75", lambda: train.setup(
+            train.parse_args(cli + ["--topology", "ring", "--staleness", "2",
+                                    "--participation", "0.75"]))),
+        ("path 9 overlap, microbatches 2",
+         lambda: api_setup(overlap=True, microbatches=2)),
+        ("path 10 jacobi, full precision", lambda: train.setup(
+            train.parse_args(cli + ["--mode", "jacobi", "--no-quantize"]))),
+    ]
+    out = []
+    for name, setup in cases:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res, _ = profile.profile_trainer(*setup(), 2, 3)
+        res = {"run": name, "peak_bytes": torch.cuda.max_memory_allocated(),
+               **{k: res[k] for k in ("step_ms", "device_busy_ms",
+                                      "idle_share", "groups_ms")}}
+        out.append(res)
+        print(f"  {name}: {res['step_ms']:.1f} ms per step, "
+              f"{res['device_busy_ms']:.1f} ms device, idle "
+              f"{100 * res['idle_share']:.1f}%, peak {res['peak_bytes']:,} B")
+    print(json.dumps({"trainer_profile": out}))
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ from .core.gadmm import ChainState, GraphState, Quadratic
 from .core.sgadmm import SGADMMState
 from .device import generator, resolve_device
 from .dist.qgadmm import DistState
+from .kernels.pack.ref import pack4_ref
 from .tree import ParamLayout
 
 
@@ -27,20 +28,25 @@ def params_from_jax(np_tree, device=None):
     dev = resolve_device(device)
     if isinstance(np_tree, dict):
         return {k: params_from_jax(v, dev) for k, v in np_tree.items()}
-    return torch.from_numpy(np.array(np_tree)).to(dev)
+    a = np.array(np_tree)
+    if a.dtype.name == "bfloat16":      # ml_dtypes: carry the bits across
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
 
 
-def state_from_jax(np_state, device=None, seed: int = 0) -> DistState:
-    """A ``repro.dist.qgadmm.DistState`` of numpy arrays (barriered) -> the
-    port's flat DistState: every parameter tree becomes a (rows, D) f32
-    buffer in the JAX leaf order; ``radius`` and ``bits`` keep their shapes
-    ((W,), or (W, L) per leaf under per_tensor / layerwise).  The JAX PRNG
-    key has no torch counterpart; the rounding generator is seeded with
-    `seed`."""
+def state_from_jax(np_state, device=None, seed: int = 0,
+                   pack_wire: bool = False) -> DistState:
+    """A ``repro.dist.qgadmm.DistState`` of numpy arrays -> the port's flat
+    DistState: every parameter tree becomes a (rows, D) f32 buffer in the
+    JAX leaf order (a bf16 leaf's values exactly, its dtype in the layout);
+    ``radius`` and ``bits`` keep their shapes ((W,), or (W, L) per leaf
+    under per_tensor / layerwise).  Under staleness the (S, ...) ring
+    becomes the port's list of S entries, oldest first, its uint8 rows
+    nibble-packed when `pack_wire` (the trainer's ``DistConfig.pack_wire``),
+    and ``hat_lag`` a flat buffer.  The JAX PRNG key has no torch
+    counterpart; the rounding generator is seeded with `seed`, the
+    participation generator with seed + 1."""
     dev = resolve_device(device)
-    if len(np_state.inbox) or len(np_state.hat_lag):
-        raise NotImplementedError("staleness state is not ported yet "
-                                  "(ROADMAP Queue 1 item 1d)")
     layout = ParamLayout.of(np_state.theta, lead=1)
 
     def flat(tree):
@@ -50,6 +56,16 @@ def state_from_jax(np_state, device=None, seed: int = 0) -> DistState:
     def vec(a, dtype):
         return torch.from_numpy(np.array(a)).to(dtype).to(dev)
 
+    inbox = []
+    for i in range(len(np_state.inbox["wire"]) if len(np_state.inbox) else 0):
+        wire = torch.from_numpy(np.array(np_state.inbox["wire"][i]))
+        if pack_wire and wire.dtype == torch.uint8:
+            wire = pack4_ref(wire)
+        inbox.append({
+            "wire": wire.to(dev),
+            "radius": vec(np_state.inbox["radius"][i], torch.float32),
+            "bits": vec(np_state.inbox["bits"][i], torch.int32),
+            "sent": vec(np_state.inbox["sent"][i], torch.bool)})
     return DistState(
         theta=flat(np_state.theta), theta_hat=flat(np_state.theta_hat),
         hat_edge=flat(np_state.hat_edge), lam_edge=flat(np_state.lam_edge),
@@ -59,7 +75,9 @@ def state_from_jax(np_state, device=None, seed: int = 0) -> DistState:
         opt_t=vec(np_state.opt_t, torch.int32),
         step=int(np_state.step),
         gen=torch.Generator(device=dev).manual_seed(seed),
-        layout=layout)
+        layout=layout, part_gen=torch.Generator().manual_seed(seed + 1),
+        inbox=inbox,
+        hat_lag=flat(np_state.hat_lag) if len(np_state.hat_lag) else None)
 
 
 def _t(a, dev, dtype=None) -> torch.Tensor:

@@ -5,11 +5,11 @@ trainer's O(E) state.
 The port's own copy of ``repro/core/topology.py`` (numpy only; the port
 imports nothing of ``repro``): ``Topology``, ``_edge_coloring``,
 ``_two_color``, ``EdgeIndex``, ``edge_index``, ``edge_schedule``, the
-chain / ring / star / 2d-torus / explicit-edge-list builders, and the
-worker placement of the paper's energy model (``Placement``,
-``random_placement``, ``head_tail_split``).  ``tests/test_torch_topology.py``
-and ``tests/test_torch_gadmm.py`` hold them against the JAX package's.  The
-two-tier (cluster-of-stars, federated) builders are not ported yet.
+chain / ring / star / 2d-torus / two-tier (cluster-of-stars, federated) /
+explicit-edge-list builders, and the worker placement of the paper's energy
+model (``Placement``, ``random_placement``, ``head_tail_split``).
+``tests/test_torch_topology.py`` and ``tests/test_torch_gadmm.py`` hold them
+against the JAX package's.
 """
 from __future__ import annotations
 
@@ -287,6 +287,53 @@ def bipartite_topology(n: int, edges) -> Topology:
     return _make("bipartite", n, edges)
 
 
+def _cluster_bounds(n: int, clusters: int) -> tuple[np.ndarray, np.ndarray]:
+    """Split n workers into ``clusters`` contiguous id ranges, sizes as
+    equal as possible (first ``n % clusters`` ranges get one extra)."""
+    sizes = np.full(clusters, n // clusters, np.int64)
+    sizes[: n % clusters] += 1
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    return starts, sizes
+
+
+def default_clusters(n: int) -> int:
+    """Cluster count of the two-tier builders: ~sqrt(n) leaders balances
+    backbone depth against per-leader fan-out (n = 10^4 -> 100 clusters of
+    100)."""
+    return max(1, int(round(np.sqrt(n))))
+
+
+def cluster_of_stars_topology(n: int, clusters: int | None = None,
+                              backbone: str = "chain") -> Topology:
+    """Two-tier graph: per-cluster stars joined by a leader backbone.
+
+    Workers split into ``clusters`` contiguous id ranges; the first id of
+    each range leads it and the rest are its leaves (a star).  The leaders
+    are joined by a chain (``backbone='chain'``, kind ``cluster_of_stars``)
+    or all to leader 0 (``'star'``, kind ``federated``).  Both are trees of
+    stars, so connected and bipartite.  ``clusters=None`` picks
+    ``default_clusters(n)``."""
+    if n < 2:
+        raise ValueError(f"a two-tier graph needs n >= 2, got {n}")
+    c = default_clusters(n) if clusters is None else int(clusters)
+    if not 1 <= c <= n:
+        raise ValueError(f"need 1 <= clusters <= n, got {c} for n={n}")
+    if backbone not in ("chain", "star"):
+        raise ValueError(f"unknown backbone {backbone!r}")
+    starts, sizes = _cluster_bounds(n, c)
+    edges: list[tuple[int, int]] = []
+    for s, sz in zip(starts.tolist(), sizes.tolist()):
+        edges.extend((s, s + j) for j in range(1, sz))
+    if backbone == "chain":
+        kind = "cluster_of_stars"
+        edges.extend((int(starts[j]), int(starts[j + 1]))
+                     for j in range(c - 1))
+    else:
+        kind = "federated"
+        edges.extend((int(starts[0]), int(starts[j])) for j in range(1, c))
+    return _make(kind, n, edges, prefer_head=0)
+
+
 def _torus_dims(n: int) -> tuple[int, int]:
     """Most-square even x even factorization of n (requires n % 4 == 0)."""
     if n % 4:
@@ -300,7 +347,8 @@ def _torus_dims(n: int) -> tuple[int, int]:
     return best
 
 
-TOPOLOGY_KINDS = ("chain", "ring", "star", "torus2d")
+TOPOLOGY_KINDS = ("chain", "ring", "star", "torus2d",
+                  "cluster_of_stars", "federated")
 
 
 def build_topology(kind_or_topo, n: int) -> Topology:
@@ -319,10 +367,12 @@ def build_topology(kind_or_topo, n: int) -> Topology:
         return star_topology(n)
     if kind == "torus2d":
         return torus2d_topology(*_torus_dims(n))
-    if kind in ("cluster_of_stars", "federated"):
-        raise NotImplementedError(
-            f"topology {kind!r} is not ported yet (ROADMAP Queue 1 item 1h)")
-    raise ValueError(f"unknown topology {kind!r}")
+    if kind == "cluster_of_stars":
+        return cluster_of_stars_topology(n)
+    if kind == "federated":
+        return cluster_of_stars_topology(n, backbone="star")
+    raise ValueError(f"unknown topology {kind!r}; expected one of "
+                     f"{TOPOLOGY_KINDS} or a Topology instance")
 
 
 # --------------------------------------------------------------- placement --
@@ -384,7 +434,8 @@ def random_placement(n: int, seed: int, grid: float = 250.0,
     'chain' is the paper's nearest-neighbor chain heuristic; 'ring' closes
     it into a cycle (even n); 'star' uses the min-sum-distance worker as
     hub (the PS baselines' server); 'torus2d' lays the chain order onto the
-    most-square even torus grid."""
+    most-square even torus grid; 'cluster_of_stars' and 'federated' are the
+    two-tier graphs over worker ids (``cluster_of_stars_topology``)."""
     rng = np.random.default_rng(seed)
     pos = rng.uniform(0.0, grid, size=(n, 2))
     if n > DENSE_PLACEMENT_MAX:
@@ -433,9 +484,8 @@ def random_placement(n: int, seed: int, grid: float = 250.0,
                               int(grid_ids[(r + 1) % rows, c])))
         topo = _make("torus2d", n, edges)
     elif topology in ("cluster_of_stars", "federated"):
-        raise NotImplementedError(
-            f"topology {topology!r} is not ported yet (ROADMAP Queue 1 "
-            "item 1h)")
+        topo = cluster_of_stars_topology(
+            n, backbone="chain" if topology == "cluster_of_stars" else "star")
     else:
         raise ValueError(f"unknown topology {topology!r}")
     return Placement(positions=pos, chain=chain, ps_index=ps,

@@ -2,8 +2,10 @@
 
 Counterpart of ``repro/kernels/pack/pack.py:pack4``/``unpack4``.  A CUDA
 tensor always goes to the kernel (or the call raises); a CPU tensor takes the
-plain version in ``ref.py``.  ``pack_mixed`` (the layerwise format) is not
-ported yet.
+plain version in ``ref.py``.  ``pack_mixed`` / ``unpack_mixed`` (the
+layerwise format, ``ref.pack_mixed_ref``) compose them: on the card each
+<= 4-bit segment is one pack4 / unpack4 launch, wider segments stay one byte
+per element.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import torch
 
 from .. import build
 from .. import check_launch
-from .ref import pack4_ref, packed_len, unpack4_ref  # noqa: F401  (re-export)
+from .ref import (mixed_packed_len, pack4_ref,  # noqa: F401  (re-export)
+                  pack_mixed_ref, packed_len, unpack4_ref, unpack_mixed_ref)
 
 Tensor = torch.Tensor
 
@@ -82,3 +85,15 @@ def unpack4(packed: Tensor, n: int) -> Tensor:
                            torch.cuda.current_stream(packed.device).cuda_stream)
     check_launch(lib, "repro_pack_error_string", rc, "unpack4")
     return out
+
+
+def pack_mixed(q: Tensor, sizes, bits) -> Tensor:
+    """Per-segment (size, bits) mixed-width packing of a flat uint8 level
+    stream; each <= 4-bit segment goes through ``pack4`` (one launch on the
+    card).  ``ref.pack_mixed_ref`` is the format and the bitwise oracle."""
+    return pack_mixed_ref(q, sizes, bits, pack4=pack4)
+
+
+def unpack_mixed(packed: Tensor, sizes, bits) -> Tensor:
+    """Inverse of pack_mixed (same static framing), through ``unpack4``."""
+    return unpack_mixed_ref(packed, sizes, bits, unpack4=unpack4)

@@ -80,17 +80,17 @@ def _report(label: str, wall_ms: float, kernels: list) -> dict:
                     for k in kernels[:15]]}
 
 
-def _train(args, rest):
+def profile_trainer(trainer, state, batches, warmup: int, n: int):
+    """`warmup` steps, then `n` steps timed (host clock, synced) and `n`
+    more under torch.profiler; prints the breakdown and returns (its JSON
+    entry, the profiler).  Also used by ``chip_smoke.py`` for the trainer
+    paths the CLI does not reach."""
     import torch
 
-    from repro_torch.launch import train
-
-    trainer, state, batches = train.setup(train.parse_args(rest))
     if trainer.device.type != "cuda":
         raise SystemExit("profile: device time exists only on the card")
-    for _ in range(args.warmup):
+    for _ in range(warmup):
         state, _ = trainer.step(state, next(batches))
-    n = args.profile_steps
     work = [next(batches) for _ in range(2 * n)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -110,6 +110,13 @@ def _train(args, rest):
            "loss": float(metrics["loss"])}
     out["step_ms"] = out["wall_ms"]
     return out, prof
+
+
+def _train(args, rest):
+    from repro_torch.launch import train
+
+    return profile_trainer(*train.setup(train.parse_args(rest)),
+                           args.warmup, args.profile_steps)
 
 
 def _serve(args, rest):

@@ -5,14 +5,19 @@
 
 runs W workers of the full whisper-tiny on the card (the Q-SGADMM chain,
 gauss-seidel, global radius, nibble-packed wire at <= 4 bits).  The JAX
-launcher's flags ``--topology``, ``--censor`` (with ``--censor-tau`` /
-``--censor-xi``), ``--layerwise`` (with ``--layerwise-period``) and
-``--bit-budget`` (implies ``--layerwise``) select the other graphs and the
-CQ-GGADMM / L-FGADMM wire, with the same names and defaults
-(``repro/launch/train.py``).  ``--smoke --device cpu`` runs the same paths on
-whisper-tiny-smoke with the kernels' plain versions.  Prints the JAX
-launcher's step line.  float32 matmuls run in full float32 (TF32 off, set
-explicitly here).
+launcher's flags, with the same names and defaults
+(``repro/launch/train.py``), select the rest: ``--topology`` the graph
+(the two-tier ``cluster_of_stars`` / ``federated`` included), ``--mode``
+gauss-seidel or jacobi, ``--no-quantize`` full-precision GADMM,
+``--staleness`` the pipelined exchange, ``--participation`` the per-round
+Bernoulli rate, ``--censor`` (with ``--censor-tau`` / ``--censor-xi``),
+``--layerwise`` (with ``--layerwise-period``) and ``--bit-budget`` (implies
+``--layerwise``) the CQ-GGADMM / L-FGADMM wire.  ``--smoke --device cpu``
+runs the same paths on whisper-tiny-smoke with the kernels' plain versions.
+Prints the JAX launcher's step line.  With ``REPRO_CHECK=1`` (or
+``DistConfig.check_invariants``) the live invariants of
+``repro_torch.obs.checks`` run on every step of each log window.  float32
+matmuls run in full float32 (TF32 off, set explicitly here).
 """
 import argparse
 import sys
@@ -32,8 +37,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--rho", type=float, default=1.0)
     ap.add_argument("--bits", type=int, default=8)
+    ap.add_argument("--no-quantize", action="store_true")
     ap.add_argument("--local-iters", type=int, default=1)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--mode", default="gauss-seidel",
+                    choices=["gauss-seidel", "jacobi"])
     ap.add_argument("--topology", default="chain",
                     choices=list(TOPOLOGY_KINDS),
                     help="worker graph (ring: even workers; torus2d: "
@@ -42,6 +50,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="CQ-GGADMM censored transmissions")
     ap.add_argument("--censor-tau", type=float, default=0.05)
     ap.add_argument("--censor-xi", type=float, default=0.9)
+    ap.add_argument("--staleness", type=int, default=0,
+                    help="S>0 pipelines the exchange: compute runs against "
+                         "S-round-old neighbor hats while S payload rounds "
+                         "stay in flight")
+    ap.add_argument("--participation", type=float, default=1.0,
+                    help="per-round Bernoulli participation rate in (0, 1]; "
+                         "<1 drops workers from random rounds with "
+                         "degree-renormalized neighbor sums")
     ap.add_argument("--layerwise", action="store_true",
                     help="L-FGADMM per-leaf wire: large leaves transmit "
                          "every --layerwise-period rounds at per-leaf bit "
@@ -86,10 +102,11 @@ def setup(args: argparse.Namespace):
     model = registry.get_model(cfg)
     dcfg = DistConfig(
         num_workers=args.workers,
-        gadmm=GADMMConfig(rho=args.rho, quantize=True,
+        gadmm=GADMMConfig(rho=args.rho, quantize=not args.no_quantize,
                           qcfg=QuantizerConfig(bits=args.bits), alpha=0.01),
-        local_iters=args.local_iters, local_lr=args.lr,
-        topology=args.topology,
+        local_iters=args.local_iters, local_lr=args.lr, mode=args.mode,
+        topology=args.topology, staleness=args.staleness,
+        participation=args.participation,
         censor=(CensorConfig(tau=args.censor_tau, xi=args.censor_xi)
                 if args.censor else None),
         layerwise=(LayerwiseConfig(large_leaf_period=args.layerwise_period,
@@ -115,18 +132,24 @@ def setup(args: argparse.Namespace):
 def run(args: argparse.Namespace):
     """Train as the CLI does; returns (trainer, state, log) with one
     (step, {metric: float}, seconds per step) entry per printed line."""
+    from repro_torch.obs import checks
+
     trainer, state, batches = setup(args)
+    check = checks.enabled(trainer.dcfg)
 
     log = []
     t0 = time.time()
-    window = 0
+    window = []
     for step in range(args.steps):
         state, metrics = trainer.step(state, next(batches))
-        window += 1
+        window.append((step, metrics))
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
-            m = {k: float(v) if v.dim() == 0 else v.tolist()
-                 for k, v in metrics.items()}          # syncs the device
-            dt = time.time() - t0
+            recs = [{"step": k, "metrics": {
+                n: float(v) if v.dim() == 0 else v.tolist()
+                for n, v in ms.items()}}                # syncs the device
+                for k, ms in window]
+            dt = (time.time() - t0) / len(window)
+            m = recs[-1]["metrics"]
             extra = (f" skip={m['skip_rate']:.2f} "
                      f"wire_bits={m['wire_bits_per_round']:.3g}"
                      if args.censor or trainer.dcfg.layerwise is not None
@@ -135,9 +158,14 @@ def run(args: argparse.Namespace):
                   f"resid={m['consensus_resid']:.4f} "
                   f"R={m['radius_mean']:.5f}"
                   f"{extra} "
-                  f"({dt / window:.2f}s/step)")
-            log.append((step + 1, m, dt / window))
-            t0, window = time.time(), 0
+                  f"({dt:.2f}s/step)")
+            log.append((step + 1, m, dt))
+            if check:
+                checks.check_step_window(trainer, state, recs)
+                checks.check_edge_mirrors(trainer, state)
+            t0, window = time.time(), []
+    if check:
+        print("REPRO_CHECK: wire accounting + edge mirrors OK")
     print("done")
     return trainer, state, log
 

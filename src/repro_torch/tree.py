@@ -4,13 +4,20 @@ A parameter tree is a nested dict of tensors.  Its leaves are taken in
 sorted-key order at every level — the order of ``jax.tree.leaves`` on the
 same dict — so the port's flat wire buffer matches the JAX trainer's
 ``_flatten_rows`` element for element.  ``ParamLayout`` records that order
-with each leaf's shape, and turns a flat row back into a tree of views.
+with each leaf's shape and dtype, and turns a flat row back into a tree.
+
+The flat buffers are float32 whatever the leaves' dtypes.  The columns of a
+narrower leaf (bfloat16, float16) hold values of that dtype:
+``ParamLayout.round_`` rounds them through it wherever the JAX trainer's
+result takes the leaf dtype, and ``views`` hands the model each leaf in its
+own dtype.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -33,6 +40,17 @@ def map_leaves(fn, tree):
     return fn(tree)
 
 
+def dtype_of(x) -> torch.dtype:
+    """The torch dtype of a tensor, or of a numpy array (``bfloat16`` from
+    ml_dtypes included)."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype
+    dt = np.asarray(x).dtype
+    if dt.name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, dt)).dtype
+
+
 def _set(tree: dict, path: tuple, value) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
@@ -41,10 +59,12 @@ def _set(tree: dict, path: tuple, value) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class ParamLayout:
-    """paths/shapes of the leaves in wire order; offsets into the flat row."""
+    """paths/shapes/dtypes of the leaves in wire order; offsets into the
+    flat row."""
 
     paths: tuple
     shapes: tuple
+    dtypes: tuple
 
     @classmethod
     def of(cls, tree, lead: int = 0) -> "ParamLayout":
@@ -52,7 +72,8 @@ class ParamLayout:
         (e.g. 1 for worker-stacked (W, ...) leaves)."""
         pl = leaves_with_path(tree)
         return cls(tuple(p for p, _ in pl),
-                   tuple(tuple(x.shape[lead:]) for _, x in pl))
+                   tuple(tuple(x.shape[lead:]) for _, x in pl),
+                   tuple(dtype_of(x) for _, x in pl))
 
     @property
     def sizes(self) -> tuple:
@@ -87,12 +108,37 @@ class ParamLayout:
         return torch.cat(cols, dim=lead)
 
     def views(self, flat: Tensor) -> dict:
-        """Flat (..., D) buffer -> tree of views into it, each leaf
-        (..., *its shape) with the leading dims kept."""
+        """Flat (..., D) buffer -> tree of its leaves, each (..., *its
+        shape) with the leading dims kept: a view for a leaf of the
+        buffer's dtype, a (differentiable) cast to the leaf's dtype
+        otherwise."""
         out: dict = {}
         off = 0
         lead = flat.shape[:-1]
-        for path, shape, n in zip(self.paths, self.shapes, self.sizes):
-            _set(out, path, flat[..., off:off + n].view(*lead, *shape))
+        for path, shape, n, dt in zip(self.paths, self.shapes, self.sizes,
+                                      self.dtypes):
+            leaf = flat[..., off:off + n].view(*lead, *shape)
+            _set(out, path, leaf if dt == flat.dtype else leaf.to(dt))
             off += n
         return out
+
+    @property
+    def narrow(self) -> tuple:
+        """(offset, size, dtype) of every floating leaf narrower than
+        float32."""
+        out, off = [], 0
+        for n, dt in zip(self.sizes, self.dtypes):
+            if dt.is_floating_point and dt.itemsize < 4:
+                out.append((off, n, dt))
+            off += n
+        return tuple(out)
+
+    def round_(self, flat: Tensor) -> Tensor:
+        """Round the (..., D) float32 buffer's columns of every narrower
+        leaf through that leaf's dtype, in place (the JAX trainer's cast to
+        the leaf dtype); returns `flat`.  A no-op on an all-float32
+        layout."""
+        for off, n, dt in self.narrow:
+            seg = flat[..., off:off + n]
+            seg.copy_(seg.to(dt))
+        return flat

@@ -120,7 +120,8 @@ def test_classification_shards_bitwise():
 
 
 # --------------------------------------------------- placement, energy -----
-@pytest.mark.parametrize("kind", ["chain", "ring", "star", "torus2d"])
+@pytest.mark.parametrize("kind", ["chain", "ring", "star", "torus2d",
+                                  "cluster_of_stars", "federated"])
 def test_placement_and_energy_match(kind):
     jp = jtopo.random_placement(20, seed=3, topology=kind)
     tp = ttopo.random_placement(20, seed=3, topology=kind)

@@ -26,7 +26,7 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
              or k == "repro" or k.startswith("repro."))
 assert not bad, bad
-assert len(mods) >= 43, mods
+assert len(mods) >= 45, mods
 print(len(mods))
 """
 

@@ -203,3 +203,23 @@ def test_ssd_scan_two_groups_card_vs_cpu(cuda):
     for a, b in ((y, y_ref), (st, st_ref)):
         err = float((a.cpu() - b).abs().max())
         assert err <= 1e-4 * float(b.abs().max()), err
+
+
+@pytest.mark.parametrize("sizes,bits", [
+    ((256,), (4,)), ((100, 200), (2, 8)), ((7, 0, 300, 65), (8, 4, 3, 5)),
+    ((0, 0), (1, 8)), ((1000, 1, 129), (4, 1, 6))])
+def test_pack_mixed_matches_plain(cuda, sizes, bits):
+    """pack_mixed / unpack_mixed on the card (pack4 / unpack4 per <= 4-bit
+    segment) against their plain versions, byte for byte."""
+    rng = np.random.default_rng(sum(sizes))
+    q = torch.from_numpy(np.concatenate(
+        [rng.integers(0, 2 ** b, n, dtype=np.uint8)
+         for n, b in zip(sizes, bits)] + [np.zeros(0, np.uint8)]))
+    packed_segs = sum(1 for n, b in zip(sizes, bits) if n and b <= 4)
+    kernels.reset_launches()
+    pk = pack_ops.pack_mixed(q.to(cuda), sizes, bits)
+    un = pack_ops.unpack_mixed(pk, sizes, bits)
+    assert kernels.LAUNCHES["pack4"] == kernels.LAUNCHES["unpack4"] \
+        == packed_segs
+    _assert_bitwise(pk.cpu(), pack_ops.pack_mixed_ref(q, sizes, bits))
+    _assert_bitwise(un.cpu(), q)

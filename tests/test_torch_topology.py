@@ -1,6 +1,7 @@
 """The port's copy of the topology tables against ``repro.core.topology``:
 edges, coloring, the edge-color ports, the directed-edge index and the
-exchange schedule, for the chain and the other ported graphs."""
+exchange schedule, for the chain and every other graph; the two-tier ones
+at W 2 (one cluster), 3 (the smallest with two clusters), 9 and 16."""
 import numpy as np
 import pytest
 
@@ -10,7 +11,9 @@ from repro_torch.core import topology as tt
 CASES = ([("chain", w) for w in (1, 2, 3, 4, 8)]
          + [("ring", w) for w in (4, 8)]
          + [("star", w) for w in (3, 5)]
-         + [("torus2d", w) for w in (4, 8)])
+         + [("torus2d", w) for w in (4, 8)]
+         + [(k, w) for k in ("cluster_of_stars", "federated")
+            for w in (2, 3, 9, 16)])
 
 
 @pytest.mark.parametrize("kind,w", CASES)
@@ -29,7 +32,9 @@ def test_topology_tables_match(kind, w):
 
 
 def test_unported_kinds_raise():
-    with pytest.raises(NotImplementedError):
-        tt.build_topology("cluster_of_stars", 16)
+    """Every kind of the JAX package builds; an unknown one raises."""
+    assert tt.TOPOLOGY_KINDS == jt.TOPOLOGY_KINDS
+    with pytest.raises(ValueError, match="unknown topology"):
+        tt.build_topology("hypercube", 16)
     with pytest.raises(ValueError):
         tt.build_topology("ring", 3)  # odd cycle: not bipartite

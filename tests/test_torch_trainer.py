@@ -26,8 +26,17 @@ The bit-width tables must be equal and the radius tables agree to rtol
 have drifted by an ulp; 1.2e-5 seen).
 
 Inside the port, ``hat_edge[d]`` must be bitwise ``theta_hat[src[d]]`` after
-every step: sender == receiver.
+every step: sender == receiver (under staleness, ``hat_lag[src[d]]``).
+
+The harness (``compare_with_jax``) also serves the option files
+(``test_torch_trainer_{modes,layerwise,schedules,pipeline,dtypes,
+telemetry}.py``): it passes the JAX step's participation mask, holds the
+port's staleness ring and ``hat_lag`` against JAX's, counts a bf16 leaf's
+columns within one bf16 ulp instead of atol 1e-5, and compares the
+telemetry metrics when the JAX side has them on.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -55,29 +64,58 @@ from repro_torch.models import encdec as t_encdec
 W = 4
 # (bits, per-step max fraction of positions beyond atol)
 CASES = {4: (0.0, 0.0), 8: (1e-4, 5e-3)}
+# the metrics telemetry adds; participants and the wire split are exact
+TELEMETRY = ("wire_bits_payload", "wire_bits_header", "wire_bits_flags",
+             "tx_links", "skip_links", "participants", "dual_resid")
 
 
-def configs(qcfg=None, censor=None, layerwise=None, **kw):
+def configs(qcfg=None, censor=None, layerwise=None, quantize=True,
+            num_workers=W, telemetry=False, state_dtype=None, **kw):
     """The same trainer configuration for both packages: rho 1, alpha 0.01,
-    `qcfg` / `censor` / `layerwise` as keyword dicts of their configs."""
+    `qcfg` / `censor` / `layerwise` as keyword dicts of their configs,
+    `state_dtype` as a torch dtype (its JAX twin on the JAX side).  The JAX
+    side's telemetry is off unless `telemetry`; the port's stays on."""
     qcfg = qcfg or {"bits": 4}
+    j_dtype = None if state_dtype is None else jnp.dtype(
+        str(state_dtype).removeprefix("torch."))
 
     def one(dist, gadmm, quant, cens, lw, **extra):
         return dist(
-            num_workers=W, gadmm=gadmm(rho=1.0, quantize=True,
-                                       qcfg=quant(**qcfg), alpha=0.01),
+            num_workers=num_workers,
+            gadmm=gadmm(rho=1.0, quantize=quantize, qcfg=quant(**qcfg),
+                        alpha=0.01),
             censor=None if censor is None else cens(**censor),
             layerwise=None if layerwise is None else lw(**layerwise),
             **kw, **extra)
 
     return (one(jq.DistConfig, JGADMMConfig, JQuantizerConfig, JCensorConfig,
-                JLayerwiseConfig, telemetry=False),
+                JLayerwiseConfig, telemetry=telemetry, state_dtype=j_dtype),
             one(tq.DistConfig, GADMMConfig, QuantizerConfig, CensorConfig,
-                LayerwiseConfig))
+                LayerwiseConfig, state_dtype=state_dtype))
 
 
-def _frac_beyond(a, b, atol):
-    return float(((a - b).abs() > atol).float().mean())
+def _frac_beyond(a, b, atol, layout=None):
+    """Fraction of positions where |a - b| > atol; with `layout`, columns
+    of a narrower leaf count instead where |a - b| exceeds one ulp of that
+    dtype at max(|a|, |b|)."""
+    err = (a - b).abs()
+    tol = torch.full_like(err, atol)
+    for off, n, dt in (layout.narrow if layout is not None else ()):
+        mag = torch.maximum(a[..., off:off + n].abs(),
+                            b[..., off:off + n].abs())
+        tol[..., off:off + n] = _ulp(mag, dt)
+    return float((err > tol).float().mean())
+
+
+def _ulp(mag, dtype):
+    """One ulp of `dtype` at magnitude `mag` (its smallest normal's ulp
+    below that)."""
+    expo = torch.floor(torch.log2(torch.clamp(
+        mag, min=torch.finfo(dtype).tiny)))
+    return torch.exp2(expo - _MANT[dtype])
+
+
+_MANT = {torch.bfloat16: 7, torch.float16: 10}   # explicit mantissa bits
 
 
 def _per_position(t, layout):
@@ -86,35 +124,81 @@ def _per_position(t, layout):
         1, layout.leaf_index())
 
 
-def compare_with_jax(jd, td, fracs, wire_rtol=0.0):
+def _narrow_ulp(t, layout):
+    """Per position: one ulp of the leaf's dtype at |t| in a narrower
+    leaf's columns, 0 elsewhere."""
+    out = torch.zeros_like(t)
+    for off, n, dt in layout.narrow:
+        out[..., off:off + n] = _ulp(t[..., off:off + n].abs(), dt)
+    return out
+
+
+def jax_part_mask(jd, key):
+    """The JAX step's participation draw of the round with state key
+    `key` (``participation_masks``), as numpy."""
+    return np.asarray(jax.random.bernoulli(
+        jax.random.fold_in(key, 0x9A77), jd.participation,
+        (jd.num_workers,)))
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one intra-op thread, restored after: the suite runs several
+    test workers on one machine, and a worker's default pool (a thread per
+    core, spinning) oversubscribes the cores several times over — the
+    JAX-compiling cases here ran 3-4x slower for it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def compare_with_jax(jd, td, fracs, wire_rtol=0.0, init_cast=None):
+    """``_compare_with_jax`` with torch on one thread (``one_thread``)."""
+    with one_thread():
+        return _compare_with_jax(jd, td, fracs, wire_rtol, init_cast)
+
+
+def _compare_with_jax(jd, td, fracs, wire_rtol=0.0, init_cast=None):
     """Run the jitted JAX step and the port's step side by side on
-    whisper-tiny-smoke for len(fracs) steps from the same state, batches
-    and draws, and hold them together after every step (see the module
-    docstring); fracs[k] bounds the fraction of state positions beyond
-    atol 1e-5 after step k.  Returns the port's metrics of every step."""
+    whisper-tiny-smoke for len(fracs) steps from the same state, batches,
+    draws and participation masks, and hold them together after every step
+    (see the module docstring); fracs[k] bounds the fraction of state
+    positions beyond atol 1e-5 (one ulp in the columns of a bf16 leaf)
+    after step k.  `init_cast` maps the JAX init tree before the state is
+    built (e.g. casting some leaves).  Returns the port's metrics of every
+    step."""
+    w = jd.num_workers
     jcfg = j_whisper.smoke_config(remat=False)
     tcfg = t_whisper.smoke_config()
     assert td.pack_wire == jd.pack_wire
     mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1, 1),
                 ("worker", "fsdp", "model"))
     jtr = jq.QGADMMTrainer(j_encdec, jcfg, jd, mesh)
-    jst = jq.init_state(lambda k: j_encdec.init(k, jcfg),
+    cast = init_cast or (lambda t: t)
+    jst = jq.init_state(lambda k: cast(j_encdec.init(k, jcfg)),
                         jax.random.PRNGKey(0), jd)
     jstep = jax.jit(jtr.make_train_step())
     ttr = tq.QGADMMTrainer(t_encdec, tcfg, td, device="cpu")
-    tst = state_from_jax(jax.tree.map(np.asarray, jst), "cpu")
+    to_port = lambda st: state_from_jax(jax.tree.map(np.asarray, st), "cpu",
+                                        pack_wire=td.pack_wire)
+    tst = to_port(jst)
     layout = tst.layout
-    loader = LMShardLoader(W, 2, 16, jcfg.vocab)
-    frames = ExtraInputs.frames(W, 2, jcfg.encoder_frames, jcfg.d_model)
+    loader = LMShardLoader(w, 2, 16, jcfg.vocab)
+    frames = ExtraInputs.frames(w, 2, jcfg.encoder_frames, jcfg.d_model)
     out = []
     for k, frac in enumerate(fracs):
         batch = loader.next_batch()
         batch["frames"] = frames
         _, k1, k2 = jax.random.split(jst.key, 3)
-        u = [np.array(jax.random.uniform(kk, (W, layout.size), jnp.float32))
+        u = [np.array(jax.random.uniform(kk, (w, layout.size), jnp.float32))
              for kk in (k1, k2)]
+        part = (jax_part_mask(jd, jst.key) if jd.participation < 1.0
+                else None)
         jst, jm = jstep(jst, batch)
-        tst, tm = ttr.step(tst, batch, u=u)
+        tst, tm = ttr.step(tst, batch, u=u, part=part)
         for name in ("loss", "consensus_resid", "radius_mean"):
             np.testing.assert_allclose(float(tm[name]), float(jm[name]),
                                        rtol=1e-4, err_msg=name)
@@ -123,24 +207,54 @@ def compare_with_jax(jd, td, fracs, wire_rtol=0.0):
         np.testing.assert_allclose(float(tm["wire_bits_per_round"]),
                                    float(jm["wire_bits_per_round"]),
                                    rtol=wire_rtol, err_msg="wire bits")
-        ref = state_from_jax(jax.tree.map(np.asarray, jst), "cpu")
+        if jd.telemetry:
+            for name in TELEMETRY:
+                np.testing.assert_allclose(
+                    float(tm[name]), float(jm[name]),
+                    rtol=1e-4 if name == "dual_resid" else wire_rtol,
+                    err_msg=name)
+            np.testing.assert_array_equal(tm["worker_sent"].numpy(),
+                                          np.asarray(jm["worker_sent"]))
+            if jd.layerwise is not None:
+                np.testing.assert_array_equal(tm["leaf_bits"].numpy(),
+                                              np.asarray(jm["leaf_bits"]))
+        ref = to_port(jst)
         assert torch.equal(tst.opt_t, ref.opt_t) and tst.step == ref.step
         assert torch.equal(tst.bits, ref.bits), k
         # R = max |theta - hat| moves with theta's last bits
         torch.testing.assert_close(tst.radius, ref.radius, rtol=1e-4,
                                    atol=0.0)
-        for f in ("theta", "opt_mu", "opt_nu", "lam_edge", "theta_hat",
-                  "hat_edge"):
-            got = _frac_beyond(getattr(tst, f), getattr(ref, f), 1e-5)
+        fields = ["theta", "opt_mu", "opt_nu", "lam_edge", "theta_hat",
+                  "hat_edge"] + (["hat_lag"] if td.staleness else [])
+        for f in fields:
+            got = _frac_beyond(getattr(tst, f), getattr(ref, f), 1e-5,
+                               layout)
             assert got <= frac, (k, f, got)
         # the codec moves a hat by at most the theta difference plus one
-        # level (one quantization step at the committed radius and width)
+        # level (one quantization step at the committed radius and width),
+        # plus one ulp where the hat is rounded to a narrower leaf dtype
         grid = (2.0 * _per_position(ref.radius, layout)
                 / _per_position(levels_of(ref.bits), layout))
-        bound = (tst.theta - ref.theta).abs() + 1.001 * grid + 1e-6
-        assert bool(((tst.theta_hat - ref.theta_hat).abs() <= bound).all()), k
-        assert bool(((tst.hat_edge - ref.hat_edge).abs()
-                     <= bound[ttr._src]).all()), k
+        if not td.gadmm.quantize:
+            grid = torch.zeros_like(grid)
+        bound = ((tst.theta - ref.theta).abs() + 1.001 * grid + 1e-6
+                 + _narrow_ulp(ref.theta_hat, layout))
+        if not td.staleness:
+            assert bool(((tst.theta_hat - ref.theta_hat).abs()
+                         <= bound).all()), k
+            assert bool(((tst.hat_edge - ref.hat_edge).abs()
+                         <= bound[ttr._src]).all()), k
+        assert len(tst.inbox) == len(ref.inbox) == td.staleness
+        for a, b in zip(tst.inbox, ref.inbox):
+            assert torch.equal(a["sent"], b["sent"]), k
+            assert torch.equal(a["bits"], b["bits"]), k
+            torch.testing.assert_close(a["radius"], b["radius"], rtol=1e-4,
+                                       atol=0.0)
+            assert a["wire"].shape == b["wire"].shape, k
+            diff = float((a["wire"] != b["wire"]).float().mean()
+                         if a["wire"].dtype == torch.uint8 else
+                         _frac_beyond(a["wire"], b["wire"], 1e-5, layout))
+            assert diff <= frac, (k, "inbox wire", diff)
         assert ttr.bit_sync(tst), k
         out.append(tm)
     return out
@@ -154,15 +268,19 @@ def test_trainer_matches_jax(bits):
 
 
 def test_unported_options_raise():
+    """Only the multi-GPU layouts are unported; every other option of the
+    JAX DistConfig builds."""
     g = GADMMConfig(rho=1.0, qcfg=QuantizerConfig(bits=4))
+    for kw in ({"uneven_shard": True}, {"seq_shard": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tq.DistConfig(num_workers=W, gadmm=g, **kw)
     for kw in ({"staleness": 1}, {"participation": 0.5}, {"mode": "jacobi"},
                {"overlap": True}, {"check_invariants": True},
                {"microbatches": 2}, {"state_dtype": torch.bfloat16},
-               {"uneven_shard": True}, {"seq_shard": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tq.DistConfig(num_workers=W, gadmm=g, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.DistConfig(num_workers=W, gadmm=GADMMConfig(quantize=False))
+               {"topology": "federated"}):
+        tq.DistConfig(num_workers=W, gadmm=g, **kw)
+    assert not tq.DistConfig(num_workers=W,
+                             gadmm=GADMMConfig(quantize=False)).pack_wire
 
 
 def test_cli_smoke_runs_on_cpu(capsys):
